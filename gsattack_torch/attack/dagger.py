@@ -1,0 +1,350 @@
+"""The DAGGER attack loop, the port of `gsattack/attack/dagger.py`: a host
+loop around one render -> detector loss -> gradient -> PGD step per
+iteration.
+
+Kept from the reference: yaw-augmented extra cameras (7 deg * i),
+truncation to a batch-size multiple, the per-batch iteration budget with
+batch drop, the >= B-1 batch success rule, the `eval_every` throttle,
+checkpoint/resume to `.npz`, the benign silhouette pass, and the
+adversarial PLY on completion (`{output_dir}/{scene}_adv_{detector}.ply`).
+
+The blend runs where the scene's tensors are: the CUDA kernels on a card,
+the plain version on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..core.camera import Camera, CameraExtrinsics, stack_cameras
+from ..core.scene import GaussianScene
+from ..models.base import Detector
+from ..ops.project import project, stack_projections
+from ..ops.raster import auto_pairs_per_gaussian, rasterize_views
+from ..render import render
+from .pgd import pgd_attack_step
+from .silhouette import silhouette_bbox
+
+_PACK_ONLY = "ROADMAP.md Queue 1 item 6, the tiered bin and the auto_caps probes"
+
+
+@dataclasses.dataclass
+class AttackConfig:
+    """Attack settings, the fields of the reference's `AttackConfig`, plus
+    `chunk` (pairs per blend chunk; each tile blends at most
+    `chunk * max_chunks` pairs)."""
+
+    epsilon: float = 5.0
+    alpha: float = 0.5
+    max_iters: int = 100
+    batch_mode: bool = True
+    batch_size: int = 5
+    attack_conf_thresh: float = 0.25
+    is_targeted: bool = True
+    target: Optional[int] = None
+    untarget: Optional[int] = None
+    attributes: tuple = ("color",)
+    norm: str = "l2"
+    add_cams: int = 0
+    start_cam: Optional[int] = None
+    end_cam: Optional[int] = None
+    shift_amount: float = 0.15
+    white_background: bool = False
+    eval_every: int = 1
+    scene_name: str = "scene"
+    detector_name: str = "toy"
+    output_dir: str = "output"
+    preds_dir: Optional[str] = None  # save predict_and_save images when set
+    # -1 sizes it from the largest tile footprint over the attack views.
+    pairs_per_gaussian: int = 32
+    max_chunks: int = 16
+    chunk: int = 64
+    # The reference's blend route ("xla" or "pallas"). Here the route
+    # follows the tensors' device, so both values run the same code.
+    backend: str = "xla"
+    # The Pallas pack layout's static caps: only 0 is supported.
+    pairs_budget: int = 0
+    rect_candidates: int = 0  # -1 alone means 0, as in the reference
+    compact_budget: int = 0
+    tier_split: int = 0
+    heavy_budget: int = 0
+    save_ply: bool = True
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 25
+    resume: bool = False
+
+
+@dataclasses.dataclass
+class AttackResult:
+    scene: GaussianScene
+    success: bool
+    iterations: int
+    losses: list
+    per_view_success: list
+    adv_ply_path: Optional[str] = None
+
+
+def render_views(
+    scene: GaussianScene,
+    cams: Camera,
+    bg: torch.Tensor,
+    pairs_per_gaussian: int = 32,
+    max_chunks: int = 16,
+    chunk: int = 64,
+    rect_candidates: int = 0,
+    with_objects: bool = True,
+) -> torch.Tensor:
+    """Multi-view render of a stacked camera -> (B, H, W, 3): the scene is
+    projected once per view, and the batch is binned and blended in one
+    launch (`rasterize_views`)."""
+    proj = stack_projections([project(scene, cams.view_at(i)) for i in range(cams.num_views)])
+    return rasterize_views(
+        proj, cams.width, cams.height, bg,
+        pairs_per_gaussian=pairs_per_gaussian, chunk=chunk, max_chunks=max_chunks,
+        with_objects=with_objects, rect_candidates=rect_candidates,
+    )["render"]
+
+
+def expand_viewpoints(
+    cameras: Sequence[CameraExtrinsics], add_cams: int
+) -> list[CameraExtrinsics]:
+    """Yaw-augmented extra viewpoints: camera 0 turned by 7 * i degrees."""
+    out = list(cameras)
+    for i in range(1, add_cams):
+        out.append(cameras[0].yaw(7 * i))
+    return out
+
+
+def _check_supported(cfg: AttackConfig, mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_dagger(mesh=...) shards over a device mesh, not ported yet "
+            "(ROADMAP.md Queue 1 item 13, multi-GPU)"
+        )
+    for field in ("pairs_budget", "compact_budget", "tier_split", "heavy_budget"):
+        if getattr(cfg, field) != 0:
+            raise NotImplementedError(
+                f"AttackConfig.{field}={getattr(cfg, field)}: a static cap of the "
+                f"Pallas pack layout and tiered bin, not ported ({_PACK_ONLY})"
+            )
+    if cfg.pairs_per_gaussian < 0 and cfg.rect_candidates < 0:
+        raise NotImplementedError(
+            f"auto-sizing rect_candidates needs the auto_pair_caps probe ({_PACK_ONLY})"
+        )
+    if cfg.backend not in ("xla", "pallas"):
+        raise ValueError(f"unknown backend {cfg.backend!r}")
+
+
+def run_dagger(
+    scene: GaussianScene,
+    cameras: Sequence[CameraExtrinsics],
+    detector: Detector,
+    cfg: AttackConfig,
+    frozen_scene: Optional[GaussianScene] = None,
+    attack_mask: Optional[np.ndarray] = None,
+    log: Callable[[str], None] = print,
+    mesh=None,
+) -> AttackResult:
+    """Run the DAGGER PGD attack on `scene` (the attacked splats), on the
+    scene's device. `frozen_scene` (optional) is overlaid for the success
+    evaluation render."""
+    _check_supported(cfg, mesh)
+    detector.load_model()
+    dev = scene.device
+    originals = {k: v.detach().clone() for k, v in scene.params().items()}
+    mask = None if attack_mask is None else torch.as_tensor(attack_mask, device=dev)
+
+    cameras = list(cameras)
+    if cfg.start_cam is not None or cfg.end_cam is not None:
+        cameras = cameras[cfg.start_cam : cfg.end_cam]
+    views = expand_viewpoints(cameras, cfg.add_cams)
+    if cfg.batch_mode and cfg.batch_size > 0:
+        rem = len(views) % cfg.batch_size
+        if rem:
+            log(f"[Info] Truncating {rem} camera(s) to a batch_size multiple.")
+            views = views[: len(views) - rem]
+    batch_size = cfg.batch_size if cfg.batch_mode else 1
+    num_batches = (
+        math.ceil(len(views) / batch_size) if cfg.batch_mode and batch_size else 1
+    )
+
+    built = [v.build(device=dev) for v in views]
+    if len({(c.width, c.height) for c in built}) > 1:
+        raise ValueError("all attack views must share a resolution for batched rendering")
+
+    bg = torch.full((3,), 1.0 if cfg.white_background else 0.0, device=dev)
+    black = torch.zeros(3, device=dev)
+
+    if cfg.rect_candidates < 0:
+        cfg = dataclasses.replace(cfg, rect_candidates=0)
+    if cfg.pairs_per_gaussian < 0:
+        # Probe the eval overlay scene too: its pair counts exceed the
+        # attacked sub-scene's.
+        probe_scenes = [scene] + (
+            [scene.concat(frozen_scene)] if frozen_scene is not None else []
+        )
+        with torch.no_grad():
+            pairs = max(
+                auto_pairs_per_gaussian(project(sc, c), c.width, c.height)
+                for sc in probe_scenes for c in built
+            )
+        cfg = dataclasses.replace(cfg, pairs_per_gaussian=pairs)
+        log(f"[Info] Auto-sized pairs_per_gaussian = {pairs}")
+
+    def views_render(sc, cams, background):
+        return render_views(
+            sc, cams, background, cfg.pairs_per_gaussian, cfg.max_chunks,
+            cfg.chunk, cfg.rect_candidates,
+        )
+
+    # ---- benign pass: silhouette GT boxes on a black background
+    gt_bboxes, n_trunc = [], 0
+    with torch.no_grad():
+        for c in built:
+            out = render(
+                scene, c, black, pairs_per_gaussian=cfg.pairs_per_gaussian,
+                chunk=cfg.chunk, max_chunks=cfg.max_chunks,
+                rect_candidates=cfg.rect_candidates,
+            )
+            gt_bboxes.append(silhouette_bbox(out["render"]).cpu().numpy())
+            n_trunc += int(out["num_truncated_pairs"])
+    gt_bboxes = np.stack(gt_bboxes)
+    if n_trunc:
+        log(
+            f"[Warning] {n_trunc} valid pairs truncated by max_chunks across "
+            "the benign renders — images are missing contributions; raise "
+            "max_chunks."
+        )
+
+    target_idx = cfg.target if cfg.target is not None else 0
+
+    def attack_step(params, cams, bboxes):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        sc = scene.with_params(leaves)
+        loss = detector.loss(views_render(sc, cams, bg), target_idx, bboxes)
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()), allow_unused=True)))
+        grads = {
+            k: torch.zeros_like(leaves[k]) if g is None else g for k, g in grads.items()
+        }
+        with torch.no_grad():
+            sc = pgd_attack_step(
+                scene.with_params(params), grads, originals, cfg.alpha,
+                cfg.epsilon, cfg.attributes, cfg.norm, cfg.is_targeted, mask,
+            )
+        return sc.params(), loss.detach()
+
+    params = {k: v.detach().clone() for k, v in scene.params().items()}
+    pending = list(range(len(built)))
+    pending_boxes = list(gt_bboxes)
+    losses: list[float] = []
+    per_view_success: list[bool] = []
+    it = 0
+    start_it = 0
+    all_done = False
+
+    ckpt_path = (
+        os.path.join(cfg.checkpoint_dir, "attack_state.npz") if cfg.checkpoint_dir else None
+    )
+    if cfg.resume and ckpt_path and os.path.exists(ckpt_path):
+        with np.load(ckpt_path, allow_pickle=False) as z:
+            params = {
+                k[2:]: torch.as_tensor(z[k], device=dev) for k in z.files if k.startswith("p_")
+            }
+            pending = [int(v) for v in z["pending"]]
+            pending_boxes = list(z["pending_boxes"])
+            start_it = int(z["iteration"]) + 1
+            losses = [float(v) for v in z["losses"]]
+        log(f"[resume] iteration {start_it}, {len(pending)} views pending")
+
+    def save_ckpt(iteration):
+        os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+        np.savez(
+            ckpt_path,
+            **{f"p_{k}": v.detach().cpu().numpy() for k, v in params.items()},
+            pending=np.asarray(pending, np.int64),
+            pending_boxes=np.asarray(pending_boxes if pending_boxes else np.zeros((0, 4))),
+            iteration=iteration,
+            losses=np.asarray(losses, np.float64),
+        )
+
+    for it in range(start_it, cfg.max_iters * num_batches):
+        if cfg.batch_mode and not pending:
+            break
+        if cfg.batch_mode and (it + 1) % cfg.max_iters == 0:
+            log(
+                f"[Info] Per-batch budget of {cfg.max_iters} iterations hit; "
+                "moving to next batch."
+            )
+            pending = pending[batch_size:]
+            pending_boxes = pending_boxes[batch_size:]
+            continue
+
+        cur = pending[:batch_size] if cfg.batch_mode else pending[:1]
+        cur_boxes = np.stack(pending_boxes[: len(cur)])
+        cams = stack_cameras([built[i] for i in cur])
+
+        params, loss = attack_step(params, cams, cur_boxes)
+        losses.append(float(loss))
+        log(f"Iteration: {it}, Loss: {losses[-1]}")
+
+        if (it % cfg.eval_every) == 0:
+            adv = scene.with_params(params)
+            eval_scene = adv.concat(frozen_scene) if frozen_scene is not None else adv
+            with torch.no_grad():
+                eval_imgs = views_render(eval_scene, cams, bg).cpu().numpy()
+            successes = []
+            for j, vi in enumerate(cur):
+                path = (
+                    os.path.join(cfg.preds_dir, f"render_it{it}_c{j}.png")
+                    if cfg.preds_dir
+                    else None
+                )
+                ok = detector.predict_and_save(
+                    image=eval_imgs[j],
+                    path=path,
+                    target=cfg.target,
+                    untarget=cfg.untarget,
+                    is_targeted=cfg.is_targeted,
+                    threshold=cfg.attack_conf_thresh,
+                    gt_bbox=cur_boxes[j],
+                )
+                successes.append(bool(ok))
+            n_ok = sum(successes)
+            log(f"Successes: {n_ok}/{len(cur)}")
+            if n_ok >= len(cur) - (1 if cfg.batch_mode and len(cur) > 1 else 0):
+                per_view_success.extend(successes)
+                pending = pending[len(cur) :]
+                pending_boxes = pending_boxes[len(cur) :]
+                if not pending:
+                    all_done = True
+                    log("All camera viewpoints attacked successfully")
+                    break
+
+        # Checkpoint after the success evaluation pruned `pending`, so a
+        # resume does not replay views already recorded as successful.
+        if ckpt_path and it > 0 and it % cfg.checkpoint_every == 0:
+            save_ckpt(it)
+
+    final = scene.with_params(params)
+    ply_path = None
+    if all_done and cfg.save_ply:
+        from ..io.ply import save_scene_ply
+
+        ply_path = os.path.join(cfg.output_dir, f"{cfg.scene_name}_adv_{cfg.detector_name}.ply")
+        log(f"saving gaussians to {ply_path}")
+        save_scene_ply(final, ply_path)
+    return AttackResult(
+        scene=final,
+        success=all_done,
+        iterations=it + 1,
+        losses=losses,
+        per_view_success=per_view_success,
+        adv_ply_path=ply_path,
+    )

@@ -1,0 +1,208 @@
+"""The tile blend's CUDA kernels (`csrc/blend.cu`) behind a
+`torch.autograd.Function`.
+
+`blend` launches the forward kernel, and autograd launches the backward
+kernel; both replace the TPU kernels of `gsattack/ops/pallas_blend.py`
+(`_fwd_kernel` and `_bwd_kernel`). Their plain version is
+`ops/raster.py::blend_tiles_plain`, whose autograd is the backward; the
+raster module sends CPU tensors there and CUDA tensors here.
+
+The library is built from the checkout's `csrc/*.cu` with `nvcc` on first
+use (into `build/gsattack_torch/` under the repository root, named by a
+hash of the sources) and loaded with ctypes, so importing this module needs
+neither CUDA nor a compiler.
+
+`FWD_LAUNCHES` and `BWD_LAUNCHES` count the kernel launches; each is raised
+by one exactly where its kernel is launched.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+FWD_LAUNCHES = 0
+BWD_LAUNCHES = 0
+
+CHANNELS = (3, 19)  # channel counts the kernels are instantiated for
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD = Path(__file__).resolve().parents[2] / "build" / "gsattack_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    for cand in (
+        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile `csrc/*.cu` into one shared library (once per source
+    content) and return its path. `verbose` adds `-Xptxas -v`, which
+    prints each kernel's registers, shared memory and spills."""
+    sources = sorted(_CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    for src in sources:
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    out = _BUILD / f"libgsattack_blend_{digest.hexdigest()[:16]}.so"
+    if out.exists() and not verbose:
+        return out
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
+        )
+    if verbose:
+        print(proc.stderr, end="")
+    os.replace(tmp, out)
+    return out
+
+
+def _load() -> ctypes.CDLL:
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            lib.gs_blend_fwd.argtypes = [p] * 7 + [i] * 5 + [p] * 4
+            lib.gs_blend_fwd.restype = i
+            lib.gs_blend_bwd.argtypes = [p] * 7 + [i] * 4 + [p] * 9
+            lib.gs_blend_bwd.restype = i
+            _lib = lib
+    return _lib
+
+
+def _check(rc: int, what: str) -> None:
+    if rc == -1:
+        raise ValueError(f"{what}: no kernel for this channel count; have {CHANNELS}")
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _validate(gauss_idx, tile_start, tile_end, mean2d, conic, opacity, colors):
+    dev = colors.device
+    if dev.type != "cuda":
+        raise ValueError(f"blend kernel needs CUDA tensors, got {dev}")
+    v, n, n_ch = colors.shape
+    if n_ch not in CHANNELS:
+        raise ValueError(f"blend kernel: {n_ch} channels, have kernels for {CHANNELS}")
+    want = {
+        "mean2d": (mean2d, (v, n, 2), torch.float32),
+        "conic": (conic, (v, n, 3), torch.float32),
+        "opacity": (opacity, (v, n), torch.float32),
+        "colors": (colors, (v, n, n_ch), torch.float32),
+        "gauss_idx": (gauss_idx, (gauss_idx.shape[0],), torch.int32),
+        "tile_start": (tile_start, (v, tile_start.shape[1]), torch.int32),
+        "tile_end": (tile_end, tuple(tile_start.shape), torch.int32),
+    }
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != dev:
+            raise ValueError(
+                f"blend kernel: {name} is {tuple(t.shape)} {t.dtype} on {t.device}, "
+                f"want {shape} {dtype} on {dev}"
+            )
+
+
+def forward_kernel(gauss_idx, tile_start, tile_end, mean2d, conic, opacity,
+                   colors, tiles_x: int, tiles_y: int, cap: int):
+    """Launch the forward kernel on contiguous, validated inputs: image
+    (V, H_pad, W_pad, CH), final T (V, H_pad, W_pad), and per pixel the
+    count of pairs up to its last contributor (int32)."""
+    global FWD_LAUNCHES
+    v, _, n_ch = colors.shape
+    dev = colors.device
+    shape = (v, tiles_y * 16, tiles_x * 16)
+    img = torch.empty(shape + (n_ch,), dtype=torch.float32, device=dev)
+    T = torch.empty(shape, dtype=torch.float32, device=dev)
+    last = torch.empty(shape, dtype=torch.int32, device=dev)
+    rc = _load().gs_blend_fwd(
+        mean2d.data_ptr(), conic.data_ptr(), opacity.data_ptr(), colors.data_ptr(),
+        gauss_idx.data_ptr(), tile_start.data_ptr(), tile_end.data_ptr(),
+        n_ch, v, tiles_x, tiles_y, cap,
+        img.data_ptr(), T.data_ptr(), last.data_ptr(), _stream(dev),
+    )
+    _check(rc, "blend forward")
+    FWD_LAUNCHES += 1
+    return img, T, last
+
+
+def backward_kernel(gauss_idx, tile_start, tile_end, mean2d, conic, opacity,
+                    colors, tiles_x: int, tiles_y: int, T, last, g_img, g_T):
+    """Launch the backward kernel from the forward's (T, last) state and
+    the output gradients: per-gaussian gradients of mean2d, conic,
+    opacity and colors, shaped like them."""
+    global BWD_LAUNCHES
+    v, _, n_ch = colors.shape
+    grads = [torch.zeros_like(x) for x in (mean2d, conic, opacity, colors)]
+    rc = _load().gs_blend_bwd(
+        mean2d.data_ptr(), conic.data_ptr(), opacity.data_ptr(), colors.data_ptr(),
+        gauss_idx.data_ptr(), tile_start.data_ptr(), tile_end.data_ptr(),
+        n_ch, v, tiles_x, tiles_y,
+        T.data_ptr(), last.data_ptr(), g_img.data_ptr(), g_T.data_ptr(),
+        *(g.data_ptr() for g in grads), _stream(colors.device),
+    )
+    _check(rc, "blend backward")
+    BWD_LAUNCHES += 1
+    return grads
+
+
+class _BlendFunction(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mean2d, conic, opacity, colors, gauss_idx, tile_start,
+                tile_end, tiles_x, tiles_y, cap):
+        inputs = [x.contiguous() for x in (gauss_idx, tile_start, tile_end, mean2d,
+                                            conic, opacity, colors)]
+        img, T, last = forward_kernel(*inputs, tiles_x, tiles_y, cap)
+        ctx.save_for_backward(*inputs, T, last)
+        ctx.tiles = (tiles_x, tiles_y)
+        ctx.mark_non_differentiable(last)
+        return img, T, last
+
+    @staticmethod
+    def backward(ctx, g_img, g_T, _g_last):
+        *inputs, T, last = ctx.saved_tensors
+        n_ch = inputs[-1].shape[-1]
+        g_img = (T.new_zeros(T.shape + (n_ch,)) if g_img is None else g_img.contiguous())
+        g_T = T.new_zeros(T.shape) if g_T is None else g_T.contiguous()
+        grads = backward_kernel(*inputs, *ctx.tiles, T, last, g_img, g_T)
+        return (*grads, None, None, None, None, None, None)
+
+
+def blend(gauss_idx, tile_start, tile_end, mean2d, conic, opacity, colors,
+          tiles_x: int, tiles_y: int, cap: int):
+    """Image (V, H_pad, W_pad, CH) and final transmittance (V, H_pad, W_pad)
+    from the blend kernels, differentiable through the backward kernel.
+    Arguments as `ops/raster.py::blend_tiles_plain`, with the per-tile cap
+    in pairs. Raises for tensors that are not on a CUDA device."""
+    _validate(gauss_idx, tile_start, tile_end, mean2d, conic, opacity, colors)
+    img, T, _ = _BlendFunction.apply(mean2d, conic, opacity, colors, gauss_idx,
+                                     tile_start, tile_end, tiles_x, tiles_y, cap)
+    return img, T
