@@ -8,20 +8,25 @@ and drives the DAGGER attack end to end.
 Phases (any failure raises and exits non-zero):
   1. Device: the card's name and power limit (nvidia-smi), the kernel build
      and its time, with ptxas's register / shared-memory report.
-  2. Kernel vs plain on a seeded 10k-splat SH3 scene, 256x256, 2 views,
-     19 channels, no truncated pairs: image and T max abs error (gate
-     1e-5) and the max relative error of every blend gradient and of every
-     scene-parameter gradient through `project` (gate 1e-3).
+  2. Kernel vs plain on a seeded 10k-splat SH3 scene, a fifth of it nearly
+     opaque so that the 0.99 alpha cap clips some live pairs (their count
+     must be above 0), 256x256, 2 views, 19 channels, no truncated pairs:
+     image and T max abs error (gate 1e-5) and the max relative error of
+     every blend gradient and of every scene-parameter gradient through
+     `project` (gate 1e-3).
   3. Kernel vs plain at the main path's shapes (100k splats, SH3, 800x800,
      4 views, 19 channels), with each kernel's time, the plain version's
-     time and the least time the card could take (its bound).
+     time and the least time the card could take (its bound), from the
+     (pixel, pair) work these inputs need.
   4. Main path: `run_dagger` with the toy head on that scene, yaw-augmented
      to 4 views, chunk 128 x max_chunks 16 (a 2048-pair tile cap), with the
-     launch counters set to 0 just before and read just after; then PGD
-     it/s and fwd+bwd Mpix/s (RGB and with the object channels), timed
-     with CUDA events after a warm-up; then where an iteration's time
-     goes: device time by kernel and the busy share (torch.profiler), and
-     the host wall time of each stage.
+     launch counters set to 0 just before and read just after, and its
+     PGD it/s from the times of its per-iteration log lines; then fwd+bwd
+     Mpix/s (RGB and with the object channels), timed with CUDA events
+     after a warm-up; then where the time of a loss-and-step iteration
+     (run_dagger's loop without its eval render) goes: device time by
+     kernel and the busy share (torch.profiler), and the host wall time
+     of each stage.
 
 Prints the card's line and the kernels as one JSON line, then the ok
 line last.
@@ -44,12 +49,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # one fp32 operation.
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
-# fp32 operations per (pixel, pair) up to a pixel's last contributor:
-# power 11, alpha 3, transmittance test 4, weight 1, then 2 per channel
-# (forward); the backward adds the recovery division, dalpha, the suffix,
-# the five geometry and one opacity gradient, and the reduction adds.
-FWD_OPS_PER_PAIR = lambda ch: 20 + 2 * ch  # noqa: E731
-BWD_OPS_PER_PAIR = lambda ch: 48 + 4 * ch  # noqa: E731
+# fp32 operations per (pixel, pair) as blend.cu does them, an FMA counted
+# as two and the exp as one. Every evaluated pair pays the alpha test:
+# power 11, alpha 4, the two skip tests 2. A live (composited) pair adds,
+# in the forward, the transmittance test 3, the weight 1 and 2 per channel;
+# in the backward, the T recovery 2, the weight 1, dalpha 3, the suffix 2,
+# the clamp 2, the five geometry gradients 17, the opacity 1, 3 per
+# channel, and its share of the sum over the tile's pixels, one add for
+# each of its 6 + CH values. A pixel's stopping pair adds the forward's
+# transmittance test.
+OPS_ALPHA = 17
+OPS_FWD_LIVE = lambda ch: 4 + 2 * ch  # noqa: E731
+OPS_FWD_STOP = 3
+OPS_BWD_LIVE = lambda ch: 34 + 4 * ch  # noqa: E731
 
 GATE_IMAGE = 1e-5
 GATE_GRAD = 1e-3
@@ -152,6 +164,59 @@ def truncated(bins) -> int:
     return int(((bins.tile_end - bins.tile_start).long() - CHUNK * MAX_CHUNKS).clamp(min=0).sum())
 
 
+def pair_work(idx, blend_in, tiles, cap: int, last, chunk: int = 32) -> dict:
+    """The (pixel, pair) work the kernels do on these inputs, from the
+    forward kernel's `last`: `fwd_eval` pairs whose alpha the forward
+    computes (a pixel's pairs up to the one that stops it, else its tile's
+    whole capped range), `stops` the pixels stopped, `bwd_eval` the pairs
+    the backward computes (those below the pixel's `last`), `live` the
+    composited pairs among them and `clamped` the live pairs whose alpha
+    the 0.99 cap clips. Plain PyTorch in the kernels' operation order."""
+    import torch
+
+    gauss_idx, tile_start, tile_end = idx
+    mean2d, conic, opacity, colors = (x.detach() for x in blend_in)
+    tiles_x, tiles_y = tiles
+    v, n, _ = colors.shape
+    dev = colors.device
+    geom = torch.cat([mean2d, conic, opacity[..., None]], -1).reshape(v * n, 6)
+    start = tile_start.reshape(-1).long()
+    count = (tile_end.reshape(-1).long() - start).clamp(0, cap)
+    m = start.shape[0]
+    tid = torch.arange(tiles_x * tiles_y, device=dev).repeat(v)
+    pix = torch.arange(256, device=dev)
+    px = ((tid % tiles_x)[:, None] * 16 + pix % 16).float()[:, None, :]  # (M, 1, 256)
+    py = ((tid // tiles_x)[:, None] * 16 + pix // 16).float()[:, None, :]
+    last_t = (last.reshape(v, tiles_y, 16, tiles_x, 16).permute(0, 1, 3, 2, 4)
+              .reshape(m, 1, 256).long())
+    stop = torch.full((m, 256), cap, dtype=torch.long, device=dev)
+    live = clamped = 0
+    for k0 in range(0, int(count.max()), chunk):
+        j = torch.arange(k0, k0 + chunk, device=dev)
+        valid = (j[None, :] < count[:, None])[..., None]  # (M, K, 1)
+        g = geom[gauss_idx[(start[:, None] + j).clamp(max=gauss_idx.shape[0] - 1)].long()]
+        dx, dy = px - g[..., 0:1], py - g[..., 1:2]  # (M, K, 256)
+        power = -0.5 * (g[..., 2:3] * dx * dx + g[..., 4:5] * dy * dy) - g[..., 3:4] * dx * dy
+        alpha_pre = g[..., 5:6] * torch.exp(power.clamp(max=0.0))
+        use = (power <= 0.0) & (alpha_pre.clamp(max=0.99) >= 1.0 / 255.0) & valid
+        below = j[None, :, None] < last_t
+        live += int((use & below).sum())
+        clamped += int((use & below & (alpha_pre > 0.99)).sum())
+        # The first live pair at or past `last` is the one that stopped
+        # the pixel: had it passed the transmittance test, it would have
+        # been composited.
+        j_past = torch.where(use & ~below, j[None, :, None], cap)
+        stop = torch.minimum(stop, j_past.amin(dim=1))
+    stopped = stop < cap
+    return {
+        "fwd_eval": int(torch.where(stopped, stop + 1, count[:, None]).sum()),
+        "stops": int(stopped.sum()),
+        "bwd_eval": int(last.long().sum()),
+        "live": live,
+        "clamped": clamped,
+    }
+
+
 def phase_small(device, tx_ty):
     """Phase 2: kernel vs plain, blend and scene-parameter gradients."""
     import torch
@@ -161,23 +226,38 @@ def phase_small(device, tx_ty):
     from gsattack_torch.ops.raster import blend_tiles_plain
 
     w = h = 256
-    scene = build_scene(10_000, seed=1, knn=1e-3, device=device, anisotropic=True)
+    n = 10_000
+    scene = build_scene(n, seed=1, knn=1e-3, device=device, anisotropic=True)
+    # A fifth of the splats nearly opaque (logit 6, opacity 0.9975), so that
+    # pairs near their centres pass the 0.99 cap: the backward's clamp and
+    # its T / (1 - alpha) recovery at alpha = 0.99 are then exercised.
+    hot = torch.rand((n, 1), generator=torch.Generator().manual_seed(4)) < 0.2
+    scene = scene.replace(
+        opacity_logit=torch.where(hot.to(device), 6.0, scene.opacity_logit)
+    )
     ext = base_camera(w, h)
     cams = stack_cameras([ext.build(device=device), ext.yaw(7.0).build(device=device)])
     leaves, _, bins, blend_in = blend_inputs(scene, cams, 32, grad_scene=True)
     if truncated(bins):
         raise AssertionError(f"phase 2 scene truncates {truncated(bins)} pairs")
     tiles = tx_ty(w, h)
+    idx = (bins.gauss_idx, bins.tile_start, bins.tile_end)
+    cap = CHUNK * MAX_CHUNKS
+    with torch.no_grad():
+        plain_in = [x.detach().contiguous() for x in blend_in]
+        last = blend.forward_kernel(*idx, *plain_in, *tiles, cap)[2]
+        work = pair_work(idx, plain_in, tiles, cap, last)
+    if work["clamped"] == 0:
+        raise AssertionError("phase 2 has no live pair past the 0.99 cap")
     g = torch.Generator(device=device).manual_seed(2)
     w_img = torch.randn((2, tiles[1] * 16, tiles[0] * 16, 19), generator=g, device=device)
     w_t = torch.randn((2, tiles[1] * 16, tiles[0] * 16), generator=g, device=device)
-    idx = (bins.gauss_idx, bins.tile_start, bins.tile_end)
     wrt = blend_in + list(leaves.values())
     names = ["d_mean2d", "d_conic", "d_opacity", "d_colour"] + [f"d_{k}" for k in leaves]
     results = {}
     for route in ("kernel", "plain"):
         if route == "kernel":
-            img, T = blend.blend(*idx, *blend_in, *tiles, CHUNK * MAX_CHUNKS)
+            img, T = blend.blend(*idx, *blend_in, *tiles, cap)
         else:
             img, T = blend_tiles_plain(*idx, *blend_in, *tiles, PLAIN_CHUNK, PLAIN_MAX_CHUNKS)
         loss = (img * w_img).sum() + (T * w_t).sum()
@@ -192,8 +272,9 @@ def phase_small(device, tx_ty):
         if b is None:
             continue
         err[name] = max_rel(a, b)
-    log("phase 2  kernel vs plain (10k splats, 256x256, 2 views, 19 ch, "
-        f"{bins.gauss_idx.shape[0]} pairs, 0 truncated):")
+    log("phase 2  kernel vs plain (10k splats, a fifth nearly opaque, 256x256, 2 views, 19 ch, "
+        f"{bins.gauss_idx.shape[0]} pairs, 0 truncated; {work['live']} live pixel-pairs, "
+        f"{work['clamped']} of them past the 0.99 cap):")
     for k, v in err.items():
         log(f"  {k:16s} {'max abs' if k in ('image', 'T') else 'max rel'} {v:.3e}")
     bad = {k: v for k, v in err.items() if v > (GATE_IMAGE if k in ("image", "T") else GATE_GRAD)}
@@ -251,9 +332,9 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
     )
 
     # Bounds from this run's inputs: each input read once, each output
-    # written once; the (pixel, pair) work up to each pixel's last
-    # contributor.
-    work = float(last.double().sum())
+    # written once; the (pixel, pair) work these inputs need.
+    with torch.no_grad():
+        work = pair_work(idx, plain_in, tiles, cap, last)
     n_pairs = bins.gauss_idx.shape[0]
     per_gauss = v * n * (6 + ch) * 4
     pixels = T_k.numel()
@@ -265,11 +346,16 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
         t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
-    fwd_bound = bound(fwd_bytes, work * FWD_OPS_PER_PAIR(ch))
-    bwd_bound = bound(bwd_bytes, work * BWD_OPS_PER_PAIR(ch))
+    fwd_ops = (work["fwd_eval"] * OPS_ALPHA + work["live"] * OPS_FWD_LIVE(ch)
+               + work["stops"] * OPS_FWD_STOP)
+    bwd_ops = work["bwd_eval"] * OPS_ALPHA + work["live"] * OPS_BWD_LIVE(ch)
+    fwd_bound = bound(fwd_bytes, fwd_ops)
+    bwd_bound = bound(bwd_bytes, bwd_ops)
+    log("  pixel-pairs: " + ", ".join(f"{k} {val}" for k, val in work.items())
+        + f"; fwd {fwd_bytes} B, {fwd_ops} ops; bwd {bwd_bytes} B, {bwd_ops} ops")
     log(f"  blend_fwd {fwd_ms:.3f} ms (plain {plain_fwd_ms:.1f} ms, bound {fwd_bound[0]:.4f} ms "
         f"by {fwd_bound[1]}); blend_bwd {bwd_ms:.3f} ms (plain {plain_bwd_ms:.1f} ms, "
-        f"bound {bwd_bound[0]:.4f} ms by {bwd_bound[1]}); {work:.4g} pixel-pairs")
+        f"bound {bwd_bound[0]:.4f} ms by {bwd_bound[1]})")
     return {
         "n_pairs": n_pairs,
         "num_culled_pairs": int(bins.num_culled_pairs),
@@ -307,7 +393,7 @@ def profile_pgd(step, iters: int = 3, top: int = 12) -> dict:
     if busy_us == 0:
         log("  profile: the profiler saw no device time (not measured)")
         return {"busy_share": None, "top": []}
-    log(f"  profile of {iters} PGD iterations: device busy {busy_us / wall_us:.1%} of "
+    log(f"  profile of {iters} loss-and-step iterations (no eval render): device busy {busy_us / wall_us:.1%} of "
         f"{wall_us / 1e3 / iters:.2f} ms/iteration (profiler on), "
         f"{sum(r[2] for r in rows) // iters} kernels/iteration; top kernels by device time:")
     for name, dev_us, count in rows[:top]:
@@ -359,7 +445,7 @@ def stage_breakdown(scene, cams, det, pairs, bg, boxes, reps: int = 3) -> dict:
         timed("pgd step", lambda: pgd_attack_step(scene, grads, originals, 0.5, 5.0))
     ms = {k: v / reps for k, v in ms.items()}
     total = sum(v for k, v in ms.items() if not k.startswith("("))
-    log(f"  stages of one PGD iteration ({total:.2f} ms, synchronised around each):")
+    log(f"  stages of one loss-and-step iteration ({total:.2f} ms, synchronised around each):")
     for k, v in ms.items():
         log(f"    {v:8.3f} ms  {k}")
     return ms
@@ -379,18 +465,21 @@ def phase_main_path(scene, cams, ext, pairs, device):
     det = ToyDetector(num_classes=8, seed=0, device=device)
     with tempfile.TemporaryDirectory() as out_dir:
         cfg = AttackConfig(
-            epsilon=5.0, alpha=0.5, max_iters=6, batch_size=4, add_cams=4, target=2,
+            epsilon=5.0, alpha=0.5, max_iters=8, batch_size=4, add_cams=4, target=2,
             attributes=("color",), norm="l2", eval_every=1, attack_conf_thresh=0.99,
             pairs_per_gaussian=-1, chunk=CHUNK, max_chunks=MAX_CHUNKS, output_dir=out_dir,
         )
+        # run_dagger logs one "Iteration:" line per PGD iteration, after the
+        # loss has come back to the host.
         lines = []
         blend.FWD_LAUNCHES = blend.BWD_LAUNCHES = 0
         t0 = time.perf_counter()
-        res = run_dagger(scene, [ext], det, cfg, log=lines.append)
+        res = run_dagger(scene, [ext], det, cfg,
+                         log=lambda line: lines.append((time.perf_counter(), line)))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"fwd": blend.FWD_LAUNCHES, "bwd": blend.BWD_LAUNCHES}
-    for line in lines:
+    for _, line in lines:
         log("  " + line)
     losses = np.asarray(res.losses)
     log(f"phase 4  run_dagger: {len(losses)} PGD iterations in {wall:.2f} s (with set-up, "
@@ -399,6 +488,14 @@ def phase_main_path(scene, cams, ext, pairs, device):
         raise AssertionError(f"main path did not launch both kernels: {launches}")
     if len(losses) == 0 or not np.isfinite(losses).all():
         raise AssertionError(f"losses not finite: {losses}")
+    # Host wall time of run_dagger's own loop (loss render, backward, step,
+    # eval render, its copy to the host and the detector's decision), from
+    # the first iteration's line to the last: the first iteration, with its
+    # warm-up, is left out.
+    stamps = [t for t, line in lines if line.startswith("Iteration:")]
+    if len(stamps) < 3:
+        raise AssertionError(f"run_dagger ran {len(stamps)} iterations, too few to time")
+    pgd_it_s = (len(stamps) - 1) / (stamps[-1] - stamps[0])
     for k, v in res.scene.params().items():
         if not bool(torch.isfinite(v).all()):
             raise AssertionError(f"final scene {k} not finite")
@@ -408,13 +505,15 @@ def phase_main_path(scene, cams, ext, pairs, device):
     if not 0 < float(moved.max()) <= cfg.epsilon * (1 + 1e-5):
         raise AssertionError(f"f_dc delta outside the l2 ball: {float(moved.max())}")
 
-    # End-to-end rates, after a warm-up.
+    # Render rates, after a warm-up.
     bg = torch.zeros(3, device=device)
     boxes = np.tile(np.array([[200, 200, 600, 600]], np.float32), (4, 1))
     originals = {k: v.detach().clone() for k, v in scene.params().items()}
     state = {"scene": scene}
 
     def pgd_iter():
+        """run_dagger's loss render, backward and step, without its eval
+        render: the loop the profile traces."""
         leaves = {k: v.detach().requires_grad_(True) for k, v in state["scene"].params().items()}
         imgs = render_views(scene.with_params(leaves), cams, bg, pairs, MAX_CHUNKS, CHUNK)
         loss = det.loss(imgs, 2, boxes)
@@ -430,17 +529,16 @@ def phase_main_path(scene, cams, ext, pairs, device):
         return run
 
     iters = 5
-    pgd_ms = cuda_ms(pgd_iter, reps=iters)
     rgb_ms = cuda_ms(fwd_bwd(False), reps=iters)
     obj_ms = cuda_ms(fwd_bwd(True), reps=iters)
     mpix = cams.num_views * cams.width * cams.height / 1e6
     rates = {
-        "pgd_it_s": 1e3 / pgd_ms,
+        "pgd_it_s": pgd_it_s,
         "fwd_bwd_mpix_s_rgb": mpix / (rgb_ms / 1e3),
         "fwd_bwd_mpix_s_objects": mpix / (obj_ms / 1e3),
-        "pgd_ms": pgd_ms, "fwd_bwd_ms_rgb": rgb_ms, "fwd_bwd_ms_objects": obj_ms,
+        "fwd_bwd_ms_rgb": rgb_ms, "fwd_bwd_ms_objects": obj_ms,
     }
-    log(f"  PGD {rates['pgd_it_s']:.3f} it/s (4 views); fwd+bwd "
+    log(f"  PGD {rates['pgd_it_s']:.3f} it/s (run_dagger, 4 views); fwd+bwd "
         f"{rates['fwd_bwd_mpix_s_rgb']:.2f} Mpix/s RGB, "
         f"{rates['fwd_bwd_mpix_s_objects']:.2f} Mpix/s with objects")
     # After the rates: the profiler's tracing slows what runs under it.

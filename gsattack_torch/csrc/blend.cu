@@ -30,14 +30,16 @@
 // changes from run to run: results agree with the plain version to float
 // rounding, not bit for bit.
 //
-// What bounds it on an H100: per live (pixel, pair) the forward does ~18
-// + 2*CH fp32 operations and one exp, the backward ~38 + 3*CH and one exp;
-// per pair it gathers (6 + CH) * 4 bytes plus a 4-byte index, once per
-// CTA. At the attack's shapes the pixel x pair arithmetic dominates the
-// bytes, so the kernels are bound by fp32 and exp throughput; this simple
-// version spends its time on serial per-pixel walks, uncoalesced gathers
-// and (backward) shuffle reductions and atomics. Making it fast is later
-// work.
+// What bounds it on an H100: every (pixel, pair) a kernel evaluates costs
+// the alpha test, 17 fp32 operations with one exp; a live (composited)
+// pair adds 4 + 2*CH in the forward, and 28 + 3*CH in the backward plus
+// 6 + CH adds to sum its gradients over the tile. Most evaluated pairs
+// fail the test. Per pair a CTA gathers (6 + CH) * 4 bytes plus a 4-byte
+// index; the image, T and `last` are written (read back, with the
+// gradients, in the backward) once per pixel. chip_smoke.py counts both
+// from a run's inputs. This simple version spends its time on serial
+// per-pixel walks, uncoalesced gathers and (backward) shuffle reductions
+// and atomics. Making it fast is later work.
 //
 // The power and alpha of a (pixel, pair) are computed by one function with
 // rounded intrinsics (no FMA contraction), so the forward and the backward

@@ -1,0 +1,77 @@
+"""`chip_smoke.pair_work`, the count of (pixel, pair) work behind the
+blend kernels' bounds, against a serial walk of the forward's rules over
+every pixel."""
+
+import numpy as np
+import torch
+
+import chip_smoke
+
+torch.set_num_threads(2)
+
+
+def _serial_walk(gauss_idx, tile_start, tile_end, mean2d, conic, opacity, tiles, cap):
+    """Per pixel, pair by pair: the forward's `last` (V, H_pad, W_pad) and
+    the counts `pair_work` should give."""
+    tiles_x, tiles_y = tiles
+    v, n = opacity.shape
+    geom = torch.cat([mean2d, conic, opacity[..., None]], -1).reshape(v * n, 6)
+    start = tile_start.reshape(-1).long()
+    count = (tile_end.reshape(-1).long() - start).clamp(0, cap)
+    tid = torch.arange(tiles_x * tiles_y).repeat(v)
+    pix = torch.arange(256)
+    px = ((tid % tiles_x)[:, None] * 16 + pix % 16).float()
+    py = ((tid // tiles_x)[:, None] * 16 + pix // 16).float()
+    m = start.shape[0]
+    T = torch.ones(m, 256)
+    last = torch.zeros(m, 256, dtype=torch.long)
+    done = torch.zeros(m, 256, dtype=torch.bool)
+    counts = dict(fwd_eval=0, live=0, clamped=0)
+    for k in range(int(count.max())):
+        valid = (k < count)[:, None]
+        g = geom[gauss_idx[(start + k).clamp(max=gauss_idx.shape[0] - 1)].long()]
+        dx, dy = px - g[:, 0:1], py - g[:, 1:2]
+        power = -0.5 * (g[:, 2:3] * dx * dx + g[:, 4:5] * dy * dy) - g[:, 3:4] * dx * dy
+        alpha_pre = g[:, 5:6] * torch.exp(power.clamp(max=0.0))
+        alpha = alpha_pre.clamp(max=0.99)
+        counts["fwd_eval"] += int((valid & ~done).sum())
+        use = (power <= 0) & (alpha >= 1.0 / 255.0) & valid & ~done
+        test = T * (1 - alpha)
+        stop = use & (test < 1e-4)
+        done |= stop
+        comp = use & ~stop
+        counts["live"] += int(comp.sum())
+        counts["clamped"] += int((comp & (alpha_pre > 0.99)).sum())
+        T = torch.where(comp, test, T)
+        last = torch.where(comp, k + 1, last)
+    counts["stops"] = int(done.sum())
+    counts["bwd_eval"] = int(last.sum())
+    last_img = last.reshape(v, tiles_y, tiles_x, 16, 16).permute(0, 1, 3, 2, 4)
+    return last_img.reshape(v, tiles_y * 16, tiles_x * 16).int(), counts
+
+
+def test_pair_work_matches_serial_walk():
+    rng = np.random.default_rng(0)
+    v, n, ch, tiles, cap = 2, 60, 3, (2, 2), 50
+    mean2d = rng.uniform(-4, 36, size=(v, n, 2))
+    a, c = rng.uniform(0.005, 0.03, size=(2, v, n))
+    b = rng.uniform(-0.5, 0.5, size=(v, n)) * np.sqrt(a * c)
+    conic = np.stack([a, b, c], -1)
+    opacity = rng.uniform(0.6, 0.999, size=(v, n))
+    colors = rng.uniform(size=(v, n, ch))
+    # A quarter centred on pixels at opacity 0.999: clamped where live.
+    mean2d[:, :15] = np.round(mean2d[:, :15])
+    opacity[:, :15] = 0.999
+    # Every gaussian in every tile, in a random order, capped at 50 of 60.
+    idx = np.concatenate([rng.permutation(n) + vi * n for vi in range(v) for _ in range(4)])
+    tile_start = np.arange(v * 4).reshape(v, 4) * n
+    args = [torch.as_tensor(x, dtype=dt) for x, dt in (
+        (idx, torch.int32), (tile_start, torch.int32), (tile_start + n, torch.int32),
+        (mean2d, torch.float32), (conic, torch.float32), (opacity, torch.float32),
+        (colors, torch.float32),
+    )]
+    last, want = _serial_walk(*args[:6], tiles, cap)
+    got = chip_smoke.pair_work(args[:3], args[3:], tiles, cap, last)
+    assert got == want
+    assert min(want["stops"], want["clamped"]) > 0
+    assert want["live"] < want["bwd_eval"] < want["fwd_eval"]
