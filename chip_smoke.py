@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Smoke run of `gsattack_torch` on one CUDA card: builds the blend kernels
-from `gsattack_torch/csrc`, holds them against their plain PyTorch version,
-and drives the DAGGER attack end to end.
+"""Smoke run of `gsattack_torch` on one CUDA card: builds the kernels from
+`gsattack_torch/csrc` (the tile blend and the row gather), holds them
+against their plain PyTorch version, drives the DAGGER attack end to end,
+and drives the row gather's micro-bench.
 
     python3 chip_smoke.py
 
@@ -27,6 +28,16 @@ Phases (any failure raises and exits non-zero):
      (run_dagger's loop without its eval render) goes: device time by
      kernel and the busy share (torch.profiler), and the host wall time
      of each stage.
+  5. Row gather (`ops/gather.py`): (a) edge cases, each equal to the plain
+     version (`torch.equal`) with one launch (none for M = 0): W = 3 and a
+     misaligned W = 4 source (the scalar path), W = 40, S = 1, repeated
+     indices, M = 1 and M = 0; (b) at S = 1,787,904 source rows, M =
+     2,217,984 indices and W of 16, 32 and 40, the kernel equal to the
+     plain version and to `torch.index_select`, with the kernel's, the
+     plain version's and `index_select`'s times and the byte bound; (c)
+     `python -m gsattack_torch.scripts.micro_gather` (`main`, one launch
+     setting, 4 timed calls) in this process, which must return 0, with
+     the gather's launch count set to 0 just before and read just after.
 
 Prints the card's line and the kernels as one JSON line, then the ok
 line last.
@@ -66,6 +77,10 @@ OPS_BWD_LIVE = lambda ch: 34 + 4 * ch  # noqa: E731
 GATE_IMAGE = 1e-5
 GATE_GRAD = 1e-3
 CHUNK, MAX_CHUNKS = 128, 16
+# The row gather's sizes: the 500k-splat scene's gathers, as the JAX
+# package's scripts/micro_gather.py defaults give them.
+GATHER_S, GATHER_M = 1_787_904, 2_217_984
+GATHER_WIDTHS = (16, 32, 40)
 # The plain version holds (tiles, chunk, 256) temporaries per chunk: at the
 # main path's 10k tiles it runs 64-pair chunks, with the same 2048-pair cap.
 PLAIN_CHUNK, PLAIN_MAX_CHUNKS = 64, 32
@@ -368,6 +383,92 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
     }
 
 
+def gather_bound(m: int, w: int) -> tuple[int, float]:
+    """The bytes a gather of m rows of w floats must move (each index read,
+    each gathered row read and each output row written once) and their
+    time in ms at the card's memory rate: the gather computes nothing."""
+    from gsattack_torch.scripts.micro_gather import moved_bytes
+
+    nbytes = moved_bytes(m, w)
+    return nbytes, nbytes / PEAK_BYTES_S * 1e3
+
+
+def phase_gather(device) -> dict:
+    """Phase 5: the row-gather kernel on edge cases and at the micro-bench's
+    sizes against its plain version and `index_select`, then the
+    micro-bench itself with the launch count read around it."""
+    import torch
+
+    from gsattack_torch.ops import gather
+    from gsattack_torch.scripts import micro_gather
+
+    bench = micro_gather.Bench(device, iters=10, seed=5)
+    unaligned = torch.randn(301 * 4 + 1, generator=bench.gen, device=device)[1:].view(301, 4)
+    repeated = torch.tensor([7] * 50 + [0, 49] * 25, dtype=torch.int32, device=device)
+    cases = {
+        "W=3 (scalar path)": (bench.table(97, 3), bench.indices(97, 300)),
+        "W=4, source 4 B past 16 B alignment (scalar path)": (unaligned, bench.indices(301, 257)),
+        "W=40": (bench.table(500, 40), bench.indices(500, 1001)),
+        "S=1": (bench.table(1, 16), bench.indices(1, 64)),
+        "repeated indices": (bench.table(50, 16), repeated),
+        "M=1": (bench.table(1000, 16), bench.indices(1000, 1)),
+        "M=0": (bench.table(1000, 16), bench.indices(1000, 0)),
+    }
+    log("phase 5  row gather: edge cases against the plain version (torch.equal)")
+    failed = []
+    for name, (src, idx) in cases.items():
+        before = gather.GATHER_LAUNCHES
+        out = gather.gather_rows(src, idx)
+        torch.cuda.synchronize()
+        launched = gather.GATHER_LAUNCHES - before
+        equal = torch.equal(out, gather.gather_rows_plain(src, idx))
+        ok = equal and launched == (1 if idx.numel() else 0) and out.shape == (idx.numel(),
+                                                                              src.shape[1])
+        log(f"  {name:52s} {tuple(out.shape)} equal {equal}, launches {launched}")
+        if not ok:
+            failed.append(name)
+    if failed:
+        raise AssertionError(f"phase 5 edge cases failed: {failed}")
+
+    idx = bench.indices(GATHER_S, GATHER_M)
+    widths = {}
+    log(f"  kernel vs plain vs index_select at S={GATHER_S}, M={GATHER_M} "
+        f"(device ms, mean of {bench.iters} calls, L2 flushed before each):")
+    for w in GATHER_WIDTHS:
+        src = bench.table(GATHER_S, w)
+        got = gather.gather_rows(src, idx)
+        plain = gather.gather_rows_plain(src, idx)
+        equal = torch.equal(got, plain) and torch.equal(got, torch.index_select(src, 0, idx))
+        err = float((got - plain).abs().max())
+        del got, plain
+        nbytes, bound_ms = gather_bound(GATHER_M, w)
+        row = dict(
+            max_abs_err=err,
+            ms=bench.ms(lambda: gather.gather_rows(src, idx)),
+            plain_ms=bench.ms(lambda: gather.gather_rows_plain(src, idx)),
+            library_ms=bench.ms(lambda: torch.index_select(src, 0, idx)),
+            bound_ms=bound_ms, bound_by="bytes", bytes=nbytes,
+        )
+        widths[w] = row
+        log(f"  W={w:2d} ({GATHER_S * w * 4 / 1e6:.1f} MB source) equal {equal}: kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, index_select "
+            f"{row['library_ms']:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B by bytes, "
+            f"{row['ms'] / bound_ms:.2f}x)")
+        if not equal:
+            raise AssertionError(f"phase 5 gather differs at W={w}: max abs {err}")
+        del src
+
+    log("  micro-bench: python -m gsattack_torch.scripts.micro_gather main "
+        "--threads 256 --in-flight 4 --iters 4")
+    gather.GATHER_LAUNCHES = 0
+    rc = micro_gather.main(["main", "--threads", "256", "--in-flight", "4", "--iters", "4"])
+    launches = gather.GATHER_LAUNCHES
+    log(f"  micro-bench returned {rc}; gather launches {launches}")
+    if rc != 0 or launches == 0:
+        raise AssertionError(f"micro-bench: rc {rc}, gather launches {launches}")
+    return {"widths": widths, "micro_bench_launches": launches}
+
+
 def profile_pgd(step, iters: int = 3, top: int = 12) -> dict:
     """Device time by kernel over `iters` PGD iterations (torch.profiler),
     and the device's busy share of the window's wall time."""
@@ -460,7 +561,7 @@ def phase_main_path(scene, cams, ext, pairs, device):
     from gsattack_torch.attack import AttackConfig, render_views, run_dagger
     from gsattack_torch.attack.pgd import pgd_attack_step
     from gsattack_torch.models import ToyDetector
-    from gsattack_torch.ops import blend
+    from gsattack_torch.ops import blend, gather
 
     det = ToyDetector(num_classes=8, seed=0, device=device)
     with tempfile.TemporaryDirectory() as out_dir:
@@ -472,18 +573,20 @@ def phase_main_path(scene, cams, ext, pairs, device):
         # run_dagger logs one "Iteration:" line per PGD iteration, after the
         # loss has come back to the host.
         lines = []
-        blend.FWD_LAUNCHES = blend.BWD_LAUNCHES = 0
+        blend.FWD_LAUNCHES = blend.BWD_LAUNCHES = gather.GATHER_LAUNCHES = 0
         t0 = time.perf_counter()
         res = run_dagger(scene, [ext], det, cfg,
                          log=lambda line: lines.append((time.perf_counter(), line)))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"fwd": blend.FWD_LAUNCHES, "bwd": blend.BWD_LAUNCHES}
+        launches = {"fwd": blend.FWD_LAUNCHES, "bwd": blend.BWD_LAUNCHES,
+                    "gather": gather.GATHER_LAUNCHES}
     for _, line in lines:
         log("  " + line)
     losses = np.asarray(res.losses)
     log(f"phase 4  run_dagger: {len(losses)} PGD iterations in {wall:.2f} s (with set-up, "
-        f"benign and eval renders); launches fwd {launches['fwd']}, bwd {launches['bwd']}")
+        f"benign and eval renders); launches fwd {launches['fwd']}, bwd {launches['bwd']}, "
+        f"gather {launches['gather']}")
     if not (launches["fwd"] > 0 and launches["bwd"] > 0):
         raise AssertionError(f"main path did not launch both kernels: {launches}")
     if len(losses) == 0 or not np.isfinite(losses).all():
@@ -560,7 +663,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
-        from gsattack_torch.ops import blend
+        from gsattack_torch.ops import _cuda
         from gsattack_torch.ops.raster import _tiles
     except ImportError as e:
         print(f"chip_smoke: gsattack_torch not found next to this script ({e})", file=sys.stderr)
@@ -575,7 +678,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"phase 1  card: {smi} ({kind}, torch {torch.__version__}, CUDA {torch.version.cuda})")
     t0 = time.perf_counter()
-    blend.build(verbose=True)
+    _cuda.build(verbose=True)
     build_s = time.perf_counter() - t0
     log(f"  kernels built from gsattack_torch/csrc in {build_s:.1f} s")
 
@@ -596,6 +699,8 @@ def main() -> int:
         )
     shapes = phase_main_shapes(scene, cams, pairs, _tiles)
     main = phase_main_path(scene, cams, ext, pairs, device)
+    gathered = phase_gather(device)
+    w16 = gathered["widths"][16]
 
     source = "gsattack_torch/csrc/blend.cu"
     kernels = [
@@ -609,6 +714,13 @@ def main() -> int:
          **{k: shapes["bwd"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                            "bound_by")},
          "library_ms": None},
+        {"name": "gather_rows", "route": "cuda", "source": "gsattack_torch/csrc/gather.cu",
+         "replaces": "gsattack/ops/pallas_gather.py:35", "launches": main["launches"]["gather"],
+         "micro_bench_launches": gathered["micro_bench_launches"],
+         "max_abs_err": max(r["max_abs_err"] for r in gathered["widths"].values()),
+         **{k: w16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "by_width": {str(w): {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                      for w, r in gathered["widths"].items()}},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,1 +1,2 @@
-"""Projection, tile binning and the blend (plain PyTorch and CUDA)."""
+"""Projection, tile binning, the blend and the row gather (plain PyTorch and
+CUDA); `_cuda` builds and loads the kernel library."""

@@ -7,10 +7,9 @@ kernel; both replace the TPU kernels of `gsattack/ops/pallas_blend.py`
 `ops/raster.py::blend_tiles_plain`, whose autograd is the backward; the
 raster module sends CPU tensors there and CUDA tensors here.
 
-The library is built from the checkout's `csrc/*.cu` with `nvcc` on first
-use (into `build/gsattack_torch/` under the repository root, named by a
-hash of the sources) and loaded with ctypes, so importing this module needs
-neither CUDA nor a compiler.
+The library is built from the checkout's `csrc/*.cu` on first use and
+loaded by `ops/_cuda.py`, so importing this module needs neither CUDA nor a
+compiler.
 
 `FWD_LAUNCHES` and `BWD_LAUNCHES` count the kernel launches; each is raised
 by one exactly where its kernel is launched.
@@ -19,80 +18,29 @@ by one exactly where its kernel is launched.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
+
+from . import _cuda
 
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 CHANNELS = (3, 19)  # channel counts the kernels are instantiated for
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_BUILD = Path(__file__).resolve().parents[2] / "build" / "gsattack_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-]
-
 _lib = None
-_lib_lock = threading.Lock()
-
-
-def _nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-        shutil.which("nvcc"),
-        "/usr/local/cuda/bin/nvcc",
-    ):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
-
-
-def build(verbose: bool = False) -> Path:
-    """Compile `csrc/*.cu` into one shared library (once per source
-    content) and return its path. `verbose` adds `-Xptxas -v`, which
-    prints each kernel's registers, shared memory and spills."""
-    sources = sorted(_CSRC.glob("*.cu"))
-    digest = hashlib.sha256()
-    for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    out = _BUILD / f"libgsattack_blend_{digest.hexdigest()[:16]}.so"
-    if out.exists() and not verbose:
-        return out
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)
-    return out
 
 
 def _load() -> ctypes.CDLL:
     global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
-            lib.gs_blend_fwd.argtypes = [p] * 7 + [i] * 5 + [p] * 4
-            lib.gs_blend_fwd.restype = i
-            lib.gs_blend_bwd.argtypes = [p] * 7 + [i] * 4 + [p] * 9
-            lib.gs_blend_bwd.restype = i
-            _lib = lib
+    if _lib is None:
+        lib = _cuda.load()
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.gs_blend_fwd.argtypes = [p] * 7 + [i] * 5 + [p] * 4
+        lib.gs_blend_fwd.restype = i
+        lib.gs_blend_bwd.argtypes = [p] * 7 + [i] * 4 + [p] * 9
+        lib.gs_blend_bwd.restype = i
+        _lib = lib
     return _lib
 
 
@@ -101,10 +49,6 @@ def _check(rc: int, what: str) -> None:
         raise ValueError(f"{what}: no kernel for this channel count; have {CHANNELS}")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _validate(gauss_idx, tile_start, tile_end, mean2d, conic, opacity, colors):
@@ -147,7 +91,7 @@ def forward_kernel(gauss_idx, tile_start, tile_end, mean2d, conic, opacity,
         mean2d.data_ptr(), conic.data_ptr(), opacity.data_ptr(), colors.data_ptr(),
         gauss_idx.data_ptr(), tile_start.data_ptr(), tile_end.data_ptr(),
         n_ch, v, tiles_x, tiles_y, cap,
-        img.data_ptr(), T.data_ptr(), last.data_ptr(), _stream(dev),
+        img.data_ptr(), T.data_ptr(), last.data_ptr(), _cuda.stream(dev),
     )
     _check(rc, "blend forward")
     FWD_LAUNCHES += 1
@@ -167,7 +111,7 @@ def backward_kernel(gauss_idx, tile_start, tile_end, mean2d, conic, opacity,
         gauss_idx.data_ptr(), tile_start.data_ptr(), tile_end.data_ptr(),
         n_ch, v, tiles_x, tiles_y,
         T.data_ptr(), last.data_ptr(), g_img.data_ptr(), g_T.data_ptr(),
-        *(g.data_ptr() for g in grads), _stream(colors.device),
+        *(g.data_ptr() for g in grads), _cuda.stream(colors.device),
     )
     _check(rc, "blend backward")
     BWD_LAUNCHES += 1

@@ -1,8 +1,9 @@
 """`chip_smoke.pair_work`, the count of (pixel, pair) work behind the
 blend kernels' bounds, against a serial walk of the forward's rules over
-every pixel."""
+every pixel; and `chip_smoke.gather_bound`, the row gather's byte bound."""
 
 import numpy as np
+import pytest
 import torch
 
 import chip_smoke
@@ -75,3 +76,13 @@ def test_pair_work_matches_serial_walk():
     assert got == want
     assert min(want["stops"], want["clamped"]) > 0
     assert want["live"] < want["bwd_eval"] < want["fwd_eval"]
+
+
+def test_gather_bound_counts_index_row_and_output_bytes():
+    m = chip_smoke.GATHER_M
+    nbytes, ms = chip_smoke.gather_bound(m, 16)
+    assert nbytes == 292_773_888 == 4 * m + 2 * 4 * m * 16
+    assert ms == pytest.approx(0.0874, abs=5e-5)
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
+    widths = {w: round(chip_smoke.gather_bound(m, w)[1], 4) for w in (32, 40)}
+    assert widths == {32: 0.1721, 40: 0.2145}
