@@ -383,13 +383,14 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
     }
 
 
-def gather_bound(m: int, w: int) -> tuple[int, float]:
-    """The bytes a gather of m rows of w floats must move (each index read,
-    each gathered row read and each output row written once) and their
-    time in ms at the card's memory rate: the gather computes nothing."""
-    from gsattack_torch.scripts.micro_gather import moved_bytes
+def gather_bound(idx, w: int) -> tuple[int, float]:
+    """The bytes a gather of rows of w floats by `idx` must move (each index
+    read once, each distinct source row read once, each output row written
+    once) and their time in ms at the card's memory rate: the gather
+    computes nothing."""
+    from gsattack_torch.scripts.micro_gather import distinct_rows, moved_bytes
 
-    nbytes = moved_bytes(m, w)
+    nbytes = moved_bytes(idx.numel(), w, distinct_rows(idx))
     return nbytes, nbytes / PEAK_BYTES_S * 1e3
 
 
@@ -409,6 +410,8 @@ def phase_gather(device) -> dict:
         "W=3 (scalar path)": (bench.table(97, 3), bench.indices(97, 300)),
         "W=4, source 4 B past 16 B alignment (scalar path)": (unaligned, bench.indices(301, 257)),
         "W=40": (bench.table(500, 40), bench.indices(500, 1001)),
+        "W=3001 (a row wider than the grid's threads)": (bench.table(5, 3001),
+                                                         bench.indices(5, 2)),
         "S=1": (bench.table(1, 16), bench.indices(1, 64)),
         "repeated indices": (bench.table(50, 16), repeated),
         "M=1": (bench.table(1000, 16), bench.indices(1000, 1)),
@@ -427,13 +430,25 @@ def phase_gather(device) -> dict:
         log(f"  {name:52s} {tuple(out.shape)} equal {equal}, launches {launched}")
         if not ok:
             failed.append(name)
+    before = gather.GATHER_LAUNCHES
+    try:  # M * W = 2^31 floats, from a view of one index: refused before any allocation
+        gather.gather_rows(bench.table(1, 16),
+                           torch.zeros(1, dtype=torch.int32, device=device).expand(2**27))
+        refused = False
+    except ValueError:
+        refused = True
+    log(f"  {'M * W = 2^31 (past the 32-bit piece index)':52s} refused {refused}, launches "
+        f"{gather.GATHER_LAUNCHES - before}")
+    if not refused or gather.GATHER_LAUNCHES != before:
+        failed.append("M * W = 2^31")
     if failed:
         raise AssertionError(f"phase 5 edge cases failed: {failed}")
 
     idx = bench.indices(GATHER_S, GATHER_M)
     widths = {}
     log(f"  kernel vs plain vs index_select at S={GATHER_S}, M={GATHER_M} "
-        f"(device ms, mean of {bench.iters} calls, L2 flushed before each):")
+        f"({micro_gather.distinct_rows(idx)} distinct rows; device ms, mean of "
+        f"{bench.iters} calls, L2 flushed before each):")
     for w in GATHER_WIDTHS:
         src = bench.table(GATHER_S, w)
         got = gather.gather_rows(src, idx)
@@ -441,7 +456,7 @@ def phase_gather(device) -> dict:
         equal = torch.equal(got, plain) and torch.equal(got, torch.index_select(src, 0, idx))
         err = float((got - plain).abs().max())
         del got, plain
-        nbytes, bound_ms = gather_bound(GATHER_M, w)
+        nbytes, bound_ms = gather_bound(idx, w)
         row = dict(
             max_abs_err=err,
             ms=bench.ms(lambda: gather.gather_rows(src, idx)),

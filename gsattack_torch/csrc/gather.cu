@@ -15,18 +15,20 @@
 // one contiguous stretch of out. Each thread keeps IN_FLIGHT loads of
 // different rows in flight before it stores them, in a grid-stride loop of
 // at most one wave of resident CTAs. Loads go through the read-only path
-// (__ldg); row offsets are 64-bit. The loop index is 32-bit when the piece
-// count allows it, which keeps the divide by the row's piece count cheap.
+// (__ldg); row offsets are 64-bit. The piece index is 32-bit: the wrapper
+// refuses M * W >= 2^31. A 64-bit index throughout, with one divide per
+// thread instead of one per piece, ran 4-5% slower on an H100 at
+// W = 16/32/40 (`python -m gsattack_torch.scripts.micro_gather main`).
 //
 // What bounds it on an H100: bytes. It reads each index (4 B) and each
-// gathered row (4 W B) once and writes each output row (4 W B) once, and
-// computes nothing: 4 M + 8 M W bytes over 3.35 TB/s. A row of 16 floats is
-// two 32-byte sectors, so a random row costs whole sectors and no more. A
-// source larger than the 50 MB L2 is read from HBM at random.
+// distinct gathered row (4 W B) once and writes each output row (4 W B)
+// once, and computes nothing: 4 M + 4 W distinct + 4 M W bytes over
+// 3.35 TB/s. A row of 16 floats is two 32-byte sectors, so a random row
+// costs whole sectors and no more. A source larger than the 50 MB L2 is
+// read from HBM at random, and a row read again may miss L2 again.
 
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cstdint>
 
 namespace {
@@ -34,31 +36,32 @@ namespace {
 constexpr int ERR_CONFIG = -1;  // threads or in_flight not supported
 constexpr int ERR_EMPTY = -2;   // rows requested from an empty table
 
-template <typename T, typename I, int IN_FLIGHT>
+template <typename T, int IN_FLIGHT>
 __global__ void gather_rows_kernel(const T* __restrict__ src, const int* __restrict__ idx,
-                                   T* __restrict__ out, I total, I row) {
-  const I stride = static_cast<I>(gridDim.x) * blockDim.x;
-  for (I e = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x; e < total;
-       e += stride * IN_FLIGHT) {
+                                   T* __restrict__ out, uint32_t total, uint32_t row) {
+  // total < 2^31 and one step is at most 132 SMs * 2048 threads * 8, so
+  // e + u * stride stays below 2^32 while the loop steps past the end.
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t e = blockIdx.x * blockDim.x + threadIdx.x; e < total; e += stride * IN_FLIGHT) {
     T v[IN_FLIGHT];
 #pragma unroll
     for (int u = 0; u < IN_FLIGHT; ++u) {
-      const I j = e + u * stride;
+      const uint32_t j = e + u * stride;
       if (j < total) {
-        const I k = j / row;
+        const uint32_t k = j / row;
         const int r = __ldg(idx + k);
         v[u] = __ldg(src + static_cast<int64_t>(r) * row + (j - k * row));
       }
     }
 #pragma unroll
     for (int u = 0; u < IN_FLIGHT; ++u) {
-      const I j = e + u * stride;
+      const uint32_t j = e + u * stride;
       if (j < total) out[j] = v[u];
     }
   }
 }
 
-template <typename T, typename I, int IN_FLIGHT>
+template <typename T, int IN_FLIGHT>
 int launch(const T* src, const int* idx, T* out, int64_t total, int64_t row, int threads,
            cudaStream_t stream) {
   int dev = 0, sms = 0;
@@ -71,29 +74,19 @@ int launch(const T* src, const int* idx, T* out, int64_t total, int64_t row, int
   const int64_t wave = static_cast<int64_t>(sms) * (2048 / threads);
   const int64_t want = (total + per_cta - 1) / per_cta;
   const int blocks = static_cast<int>(want < wave ? want : wave);
-  gather_rows_kernel<T, I, IN_FLIGHT><<<blocks, threads, 0, stream>>>(
-      src, idx, out, static_cast<I>(total), static_cast<I>(row));
+  gather_rows_kernel<T, IN_FLIGHT><<<blocks, threads, 0, stream>>>(
+      src, idx, out, static_cast<uint32_t>(total), static_cast<uint32_t>(row));
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int IN_FLIGHT>
-int launch_width(const T* src, const int* idx, T* out, int64_t total, int64_t row,
-                 int threads, cudaStream_t stream) {
-  // A 32-bit index stays below 2^32 while the loop steps past the end:
-  // total < 2^31 and one step is at most 132 SMs * 2048 threads * 8.
-  if (total <= INT_MAX)
-    return launch<T, uint32_t, IN_FLIGHT>(src, idx, out, total, row, threads, stream);
-  return launch<T, uint64_t, IN_FLIGHT>(src, idx, out, total, row, threads, stream);
 }
 
 template <typename T>
 int launch_pieces(const T* src, const int* idx, T* out, int64_t total, int64_t row,
                   int threads, int in_flight, cudaStream_t stream) {
   switch (in_flight) {
-    case 1: return launch_width<T, 1>(src, idx, out, total, row, threads, stream);
-    case 2: return launch_width<T, 2>(src, idx, out, total, row, threads, stream);
-    case 4: return launch_width<T, 4>(src, idx, out, total, row, threads, stream);
-    case 8: return launch_width<T, 8>(src, idx, out, total, row, threads, stream);
+    case 1: return launch<T, 1>(src, idx, out, total, row, threads, stream);
+    case 2: return launch<T, 2>(src, idx, out, total, row, threads, stream);
+    case 4: return launch<T, 4>(src, idx, out, total, row, threads, stream);
+    case 8: return launch<T, 8>(src, idx, out, total, row, threads, stream);
     default: return ERR_CONFIG;
   }
 }
@@ -105,7 +98,7 @@ int launch_pieces(const T* src, const int* idx, T* out, int64_t total, int64_t r
 // take (threads a multiple of 32 in [32, 1024]; in_flight 1, 2, 4 or 8), or
 // ERR_EMPTY for M > 0 rows of an S = 0 table. Launches nothing when M or W
 // is 0. src, idx and out are device pointers; src (S, W) and out (M, W) are
-// contiguous float32, idx (M,) contiguous int32.
+// contiguous float32, idx (M,) contiguous int32, and M * W < 2^31.
 extern "C" int gs_gather_rows(const float* src, const int* idx, float* out, int64_t S,
                               int W, int64_t M, int threads, int in_flight, void* stream) {
   if (threads < 32 || threads > 1024 || threads % 32 != 0) return ERR_CONFIG;

@@ -4,7 +4,8 @@ It replaces the TPU kernel of `gsattack/ops/pallas_gather.py`
 (`_gather_rows_kernel`, behind `gather_rows`). That kernel's knobs
 (`block`, `n_sem`, `unroll`, `interpret`) steer Mosaic's DMAs and have no
 meaning on the card; here the launch takes `threads` per CTA and `in_flight`
-loads per thread. M need not be a multiple of anything. Indices are trusted
+loads per thread. M need not be a multiple of anything, but M * W must stay
+under 2^31 (an 8 GiB output), on the CPU too. Indices are trusted
 to lie in [0, S), as in the JAX function. There is no backward: the Pallas
 call has none.
 
@@ -26,6 +27,7 @@ GATHER_LAUNCHES = 0
 
 THREADS = 256  # threads per CTA, a multiple of 32 in [32, 1024]
 IN_FLIGHT = 4  # loads each thread keeps in flight: 1, 2, 4 or 8
+MAX_OUT = 2**31  # M * W must stay under it, on every device
 
 _lib = None
 
@@ -58,6 +60,11 @@ def _validate(src: torch.Tensor, idx: torch.Tensor) -> None:
     if idx.dim() != 1 or idx.dtype != torch.int32:
         raise ValueError(
             f"gather_rows: idx must be a 1-D int32 tensor, got {tuple(idx.shape)} {idx.dtype}"
+        )
+    if idx.shape[0] * src.shape[1] >= MAX_OUT:
+        raise ValueError(
+            f"gather_rows: an output of {idx.shape[0]} x {src.shape[1]} floats is not under "
+            "2^31, the kernel's 32-bit piece index"
         )
 
 

@@ -45,12 +45,19 @@ from gsattack_torch.ops import gather
 
 MODES = ("main", "sweep", "sweep_w", "sweep_split")
 SPIN_CYCLES = 2_000_000  # about 1 ms of an H100's clock
+HBM_BYTES_S = 3.35e12  # an H100 SXM's HBM3 rate, the gather's bound
 
 
-def moved_bytes(m: int, w: int) -> int:
-    """Bytes a gather of m rows of w floats must move: each int32 index read
-    once, each gathered row read once and each output row written once."""
-    return 4 * m + 2 * 4 * m * w
+def moved_bytes(m: int, w: int, distinct: int) -> int:
+    """Bytes a gather of m rows of w floats, `distinct` of them different
+    rows of the source, must move: each int32 index read once, each distinct
+    source row read once and each output row written once."""
+    return 4 * m + 4 * w * distinct + 4 * m * w
+
+
+def distinct_rows(idx: torch.Tensor) -> int:
+    """The number of different source rows `idx` names."""
+    return int(torch.unique(idx).numel())
 
 
 def card_line() -> str:
@@ -137,8 +144,11 @@ def run_main(b: Bench, args) -> None:
     s, m, w = args.s, args.m, args.w
     src, idx = b.table(s, w), b.indices(s, m)
     ref = library(src, idx)
-    print(f"S={s} M={m} W={w} ({s * w * 4 / 1e6:.1f} MB source, "
-          f"{moved_bytes(m, w)} B moved)", flush=True)
+    distinct = distinct_rows(idx)
+    nbytes = moved_bytes(m, w, distinct)
+    print(f"S={s} M={m} W={w} ({s * w * 4 / 1e6:.1f} MB source, {distinct} distinct rows, "
+          f"{nbytes} B moved: bound {nbytes / HBM_BYTES_S * 1e3:.4f} ms at "
+          f"{HBM_BYTES_S / 1e12} TB/s)", flush=True)
     b.run("index_select", lambda: library(src, idx), None, m)
     for threads in map(int, args.threads.split(",")):
         for in_flight in map(int, args.in_flight.split(",")):

@@ -78,11 +78,24 @@ def test_pair_work_matches_serial_walk():
     assert want["live"] < want["bwd_eval"] < want["fwd_eval"]
 
 
-def test_gather_bound_counts_index_row_and_output_bytes():
-    m = chip_smoke.GATHER_M
-    nbytes, ms = chip_smoke.gather_bound(m, 16)
+def test_gather_bound_counts_index_distinct_row_and_output_bytes():
+    # A small example: each index once, each distinct row once, each output row once.
+    idx = np.random.default_rng(3).integers(0, 50, size=200).astype(np.int32)
+    distinct = np.unique(idx).size
+    assert distinct < 50
+    nbytes, ms = chip_smoke.gather_bound(torch.from_numpy(idx), 16)
+    assert nbytes == 4 * 200 + 4 * 16 * distinct + 4 * 200 * 16
+    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
+    # M distinct rows of the micro-bench's sizes: the most the gather can need.
+    m, s = chip_smoke.GATHER_M, chip_smoke.GATHER_S
+    nbytes, ms = chip_smoke.gather_bound(torch.randperm(m, dtype=torch.int32), 16)
     assert nbytes == 292_773_888 == 4 * m + 2 * 4 * m * 16
     assert ms == pytest.approx(0.0874, abs=5e-5)
-    assert ms == pytest.approx(nbytes / 3.35e12 * 1e3, rel=1e-12)
-    widths = {w: round(chip_smoke.gather_bound(m, w)[1], 4) for w in (32, 40)}
-    assert widths == {32: 0.1721, 40: 0.2145}
+    # M uniform indices into S rows, as phase 5 draws them, name about
+    # S (1 - exp(-M / S)) distinct rows: ~1.27M of 2.2M.
+    idx = torch.randint(0, s, (m,), generator=torch.Generator().manual_seed(5),
+                        dtype=torch.int32)
+    distinct = (chip_smoke.gather_bound(idx, 16)[0] - 4 * m - 4 * m * 16) // (4 * 16)
+    assert distinct == pytest.approx(s * (1 - np.exp(-m / s)), rel=5e-3)
+    bounds = {w: round(chip_smoke.gather_bound(idx, w)[1], 4) for w in (16, 32, 40)}
+    assert bounds == pytest.approx({16: 0.0693, 32: 0.1360, 40: 0.1693}, abs=2e-4)

@@ -66,6 +66,7 @@ def test_gather_rows_cpu_takes_plain_route():
     (torch.zeros(4, 10).t(), torch.zeros(3, dtype=torch.int32), "contiguous"),
     (torch.zeros(10, 4), torch.zeros(3, 1, dtype=torch.int32), "1-D"),
     (torch.zeros(10, 4), torch.zeros(3, dtype=torch.int32, device="meta"), "meta"),
+    (torch.zeros(1, 16), torch.zeros(1, dtype=torch.int32).expand(2**27), "2\\^31"),
     (torch.zeros(10, 4, device="meta"), torch.zeros(3, dtype=torch.int32, device="meta"),
      "no route"),
 ])
