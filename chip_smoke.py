@@ -15,10 +15,18 @@ Phases (any failure raises and exits non-zero):
      image and T max abs error (gate 1e-5) and the max relative error of
      every blend gradient and of every scene-parameter gradient through
      `project` (gate 1e-3).
+  2b. Kernel vs plain (the same 2048-pair cap, same gates) at 3 and 19
+     channels on one view of tiles built directly (`edge_tile_inputs`):
+     tiles of 0, 1, B - 1, B and B + 1 pairs for each staging batch B of
+     the kernels, and of 2047, 2048 and 2049 pairs, with splats at opacity
+     0.999 centred on pixels; each tile's deepest last contributor must be
+     its capped pair count, so the backward starts at every batch edge.
   3. Kernel vs plain at the main path's shapes (100k splats, SH3, 800x800,
      4 views, 19 channels), with each kernel's time, the plain version's
      time and the least time the card could take (its bound), from the
-     (pixel, pair) work these inputs need.
+     (pixel, pair) work these inputs need; and the backward's (warp, pair)
+     steps with a live lane, with the warp shuffles that summing their
+     gradients takes by a butterfly per value and by the reduce-scatter.
   4. Main path: `run_dagger` with the toy head on that scene, yaw-augmented
      to 4 views, chunk 128 x max_chunks 16 (a 2048-pair tile cap), with the
      launch counters set to 0 just before and read just after, and its
@@ -77,6 +85,7 @@ OPS_BWD_LIVE = lambda ch: 34 + 4 * ch  # noqa: E731
 GATE_IMAGE = 1e-5
 GATE_GRAD = 1e-3
 CHUNK, MAX_CHUNKS = 128, 16
+EDGE_BATCHES = (32, 64)  # pairs staged per step: blend.cu's BWD_BATCH, FWD_BATCH
 # The row gather's sizes: the 500k-splat scene's gathers, as the JAX
 # package's scripts/micro_gather.py defaults give them.
 GATHER_S, GATHER_M = 1_787_904, 2_217_984
@@ -156,6 +165,28 @@ def base_camera(width: int, height: int):
     return CameraExtrinsics(np.eye(3), np.zeros(3), 1.0, 1.0 * height / width, width, height)
 
 
+def main_shapes(device):
+    """The main path's scene (100k splats, SH3), its base camera (800x800),
+    the 4 yaw-augmented views run_dagger renders, and the per-gaussian pair
+    capacity its -1 resolves to."""
+    import torch
+
+    from gsattack_torch.attack import expand_viewpoints
+    from gsattack_torch.core.camera import stack_cameras
+    from gsattack_torch.ops.project import project
+    from gsattack_torch.ops.raster import auto_pairs_per_gaussian
+
+    scene = build_scene(100_000, seed=0, knn=1e-4, device=device)
+    ext = base_camera(800, 800)
+    cams = stack_cameras([v.build(device=device) for v in expand_viewpoints([ext], 4)])
+    with torch.no_grad():
+        pairs = max(
+            auto_pairs_per_gaussian(project(scene, cams.view_at(i)), 800, 800)
+            for i in range(cams.num_views)
+        )
+    return scene, ext, cams, pairs
+
+
 def blend_inputs(scene, cams, pairs_per_gaussian: int, grad_scene: bool):
     """Project every view and bin it: the blend's inputs (with autograd
     back to the scene's parameters when `grad_scene`) and the bins."""
@@ -185,8 +216,11 @@ def pair_work(idx, blend_in, tiles, cap: int, last, chunk: int = 32) -> dict:
     computes (a pixel's pairs up to the one that stops it, else its tile's
     whole capped range), `stops` the pixels stopped, `bwd_eval` the pairs
     the backward computes (those below the pixel's `last`), `live` the
-    composited pairs among them and `clamped` the live pairs whose alpha
-    the 0.99 cap clips. Plain PyTorch in the kernels' operation order."""
+    composited pairs among them, `clamped` the live pairs whose alpha the
+    0.99 cap clips, and `warp_live` the backward's (warp, pair) steps with a
+    live lane, a warp being one of the tile's 8 two-row groups of 32
+    pixels: the steps that sum gradients over the warp. Plain PyTorch in
+    the kernels' operation order."""
     import torch
 
     gauss_idx, tile_start, tile_end = idx
@@ -205,7 +239,7 @@ def pair_work(idx, blend_in, tiles, cap: int, last, chunk: int = 32) -> dict:
     last_t = (last.reshape(v, tiles_y, 16, tiles_x, 16).permute(0, 1, 3, 2, 4)
               .reshape(m, 1, 256).long())
     stop = torch.full((m, 256), cap, dtype=torch.long, device=dev)
-    live = clamped = 0
+    live = clamped = warp_live = 0
     for k0 in range(0, int(count.max()), chunk):
         j = torch.arange(k0, k0 + chunk, device=dev)
         valid = (j[None, :] < count[:, None])[..., None]  # (M, K, 1)
@@ -217,6 +251,7 @@ def pair_work(idx, blend_in, tiles, cap: int, last, chunk: int = 32) -> dict:
         below = j[None, :, None] < last_t
         live += int((use & below).sum())
         clamped += int((use & below & (alpha_pre > 0.99)).sum())
+        warp_live += int((use & below).reshape(m, chunk, 8, 32).any(-1).sum())
         # The first live pair at or past `last` is the one that stopped
         # the pixel: had it passed the transmittance test, it would have
         # been composited.
@@ -229,7 +264,17 @@ def pair_work(idx, blend_in, tiles, cap: int, last, chunk: int = 32) -> dict:
         "bwd_eval": int(last.long().sum()),
         "live": live,
         "clamped": clamped,
+        "warp_live": warp_live,
     }
+
+
+def bwd_shuffles(ch: int) -> tuple[int, int]:
+    """Warp shuffles per (warp, pair) step with a live lane, summing the
+    6 + CH gradient values over the warp: the first design's 5-step
+    butterfly per value, and the reduce-scatter over the values padded to
+    32 (31 shuffles) or 16 (15, then one to add the two half-warps)."""
+    nv = 6 + ch
+    return 5 * nv, 31 if nv > 16 else 16
 
 
 def phase_small(device, tx_ty):
@@ -298,6 +343,150 @@ def phase_small(device, tx_ty):
     return err
 
 
+def kernels_vs_plain(idx, blend_in, tiles, cap: int,
+                     plain_chunks=(PLAIN_CHUNK, PLAIN_MAX_CHUNKS), seed: int = 3) -> dict:
+    """Both kernels against the plain version on the same inputs: the
+    forward kernel's image and T, and the backward kernel's gradients for
+    seeded random output gradients against the plain version's autograd
+    (`blend_in` must require grad). Returns the errors (image/T max abs,
+    gradients max abs and max rel each), the forward's (T, last), the output
+    gradients and the plain loss, whose autograd is the plain backward."""
+    import torch
+
+    from gsattack_torch.ops import blend
+    from gsattack_torch.ops.raster import blend_tiles_plain
+
+    plain_in = [x.detach() for x in blend_in]
+    with torch.no_grad():
+        img_k, T_k, last = blend.forward_kernel(*idx, *plain_in, *tiles, cap)
+    g = torch.Generator(device=img_k.device).manual_seed(seed)
+    g_img = torch.randn(img_k.shape, generator=g, device=img_k.device)
+    g_t = torch.randn(T_k.shape, generator=g, device=img_k.device)
+    grads_k = blend.backward_kernel(*idx, *plain_in, *tiles, T_k, last, g_img, g_t)
+    img_p, T_p = blend_tiles_plain(*idx, *blend_in, *tiles, *plain_chunks)
+    out_p = (img_p * g_img).sum() + (T_p * g_t).sum()
+    grads_p = torch.autograd.grad(out_p, blend_in, retain_graph=True)
+    names = ("d_mean2d", "d_conic", "d_opacity", "d_colour")
+    return {
+        "fwd_err": max(float((img_k - img_p.detach()).abs().max()),
+                       float((T_k - T_p.detach()).abs().max())),
+        "bwd_abs": max(float((a - b).abs().max()) for a, b in zip(grads_k, grads_p)),
+        "bwd_rel": {k: max_rel(a, b) for k, a, b in zip(names, grads_k, grads_p)},
+        "T": T_k, "last": last, "g_img": g_img, "g_T": g_t, "plain_out": out_p,
+    }
+
+
+def edge_tile_counts() -> list[int]:
+    """Pairs per tile of phase 2b's view: an empty tile; 1, B - 1, B and
+    B + 1 for each staging batch B of the kernels; 2047, 2048 and 2049
+    around the 2048-pair cap."""
+    cap = CHUNK * MAX_CHUNKS
+    counts = {0, cap - 1, cap, cap + 1}
+    for b in EDGE_BATCHES:
+        counts |= {1, b - 1, b, b + 1}
+    return sorted(counts)
+
+
+def edge_tile_inputs(ch: int, seed: int = 7) -> dict:
+    """One view of blend inputs built directly, seeded with numpy: tile i of
+    a one-row strip holds `edge_tile_counts()[i]` pairs, each pair its own
+    gaussian, stored in a shuffled order. In the tiles of up to 65 pairs the
+    means lie in and around the tile, with PD conics and opacities 0.05-0.7,
+    and every 8th pair is a narrow splat at opacity 0.999 centred on a pixel
+    (where the 0.99 cap clips it). In the tiles near the cap one pair in 16
+    lies on the tile at opacity 0.02-0.3 and the rest lie 40 px or more
+    below it (evaluated, never live), so that pixels stay open up to the
+    cap. The last three pairs of every tile cover it (sigma 14 px, opacity
+    0.5): an open pixel composites the tile's last pair, and a 2049th pair
+    would show if the cap let it through. The geometry does not depend on
+    `ch`. Returns the blend's arrays (one view) as numpy and the tile
+    grid."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    counts = edge_tile_counts()
+    fields = {"mean2d": [], "conic": [], "opacity": [], "colors": []}
+    for i, cnt in enumerate(counts):
+        x0 = 16.0 * i
+        mean = rng.uniform(-4, 20, size=(cnt, 2))
+        mean[:, 0] += x0
+        a, c = rng.uniform(0.01, 0.3, size=(2, cnt))
+        b = rng.uniform(-0.5, 0.5, size=cnt) * np.sqrt(a * c)
+        op = rng.uniform(0.05, 0.7, size=cnt)
+        if cnt > 2 * max(EDGE_BATCHES):
+            far = rng.uniform(size=cnt) >= 1 / 16
+            mean[far, 1] = rng.uniform(56, 76, size=int(far.sum()))
+            a[far] = c[far] = rng.uniform(0.05, 0.3, size=int(far.sum()))
+            b[far] = 0.0
+            op[~far] = rng.uniform(0.02, 0.3, size=int((~far).sum()))
+        else:
+            hot = np.arange(cnt) % 8 == 3
+            mean[hot] = np.stack([rng.integers(0, 16, int(hot.sum())) + x0,
+                                  rng.integers(0, 16, int(hot.sum()))], -1)
+            a[hot] = c[hot] = 0.5
+            b[hot] = 0.0
+            op[hot] = 0.999
+        cover = np.arange(cnt) >= cnt - 3
+        mean[cover] = (x0 + 7.5, 7.5)
+        a[cover] = c[cover] = 0.005
+        b[cover] = 0.0
+        op[cover] = 0.5
+        fields["mean2d"].append(mean)
+        fields["conic"].append(np.stack([a, b, c], -1))
+        fields["opacity"].append(op)
+    n = sum(counts)
+    fields["colors"].append(rng.uniform(size=(n, ch)))  # after the geometry: the same at any CH
+    perm = rng.permutation(n)  # pair p is gaussian perm[p]
+    out = {}
+    for k, parts in fields.items():
+        by_pair = np.concatenate(parts).astype(np.float32)
+        stored = np.empty_like(by_pair)
+        stored[perm] = by_pair
+        out[k] = stored[None]
+    start = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    out["gauss_idx"] = perm.astype(np.int32)
+    out["tile_start"] = start.astype(np.int32)[None]
+    out["tile_end"] = (start + counts).astype(np.int32)[None]
+    out["tiles"] = (len(counts), 1)
+    return out
+
+
+def phase_edge_tiles(device) -> dict:
+    """Phase 2b: both kernels against the plain version (the same 2048-pair
+    cap) on `edge_tile_inputs`, at 3 and 19 channels."""
+    import torch
+
+    cap = CHUNK * MAX_CHUNKS
+    counts = edge_tile_counts()
+    log(f"phase 2b kernel vs plain on built tiles of {counts} pairs (1 view, cap {cap}):")
+    errs = {}
+    for ch in (3, 19):
+        e = edge_tile_inputs(ch)
+        idx = [torch.from_numpy(e[k]).to(device) for k in ("gauss_idx", "tile_start", "tile_end")]
+        blend_in = [torch.from_numpy(e[k]).to(device).requires_grad_(True)
+                    for k in ("mean2d", "conic", "opacity", "colors")]
+        tiles = e["tiles"]
+        cmp = kernels_vs_plain(idx, blend_in, tiles, cap, plain_chunks=(CHUNK, MAX_CHUNKS))
+        last = cmp["last"]
+        with torch.no_grad():
+            work = pair_work(idx, [x.detach() for x in blend_in], tiles, cap, last)
+        # The deepest last contributor of each tile: where the backward's
+        # walk starts.
+        deepest = last.reshape(16, tiles[0], 16).amax(dim=(0, 2)).tolist()
+        log(f"  CH={ch:2d}: image/T max abs {cmp['fwd_err']:.3e}; gradients max rel "
+            + ", ".join(f"{k} {v:.3e}" for k, v in cmp["bwd_rel"].items())
+            + f"; {work['live']} live pixel-pairs, {work['clamped']} past the 0.99 cap; "
+            f"deepest last contributor per tile {deepest}")
+        want = [min(c, cap) for c in counts]
+        if (cmp["fwd_err"] > GATE_IMAGE or max(cmp["bwd_rel"].values()) > GATE_GRAD
+                or work["clamped"] == 0 or deepest != want):
+            raise AssertionError(f"phase 2b failed at CH={ch}: image/T {cmp['fwd_err']}, "
+                                 f"grads {cmp['bwd_rel']}, clamped {work['clamped']}, "
+                                 f"deepest {deepest} (want {want})")
+        errs[ch] = {"fwd_err": cmp["fwd_err"], **cmp["bwd_rel"]}
+    return errs
+
+
 def phase_main_shapes(scene, cams, pairs, tx_ty):
     """Phase 3: both kernels against the plain version at the main path's
     shapes, with their times and bounds."""
@@ -312,20 +501,10 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
     cap = CHUNK * MAX_CHUNKS
     idx = (bins.gauss_idx, bins.tile_start, bins.tile_end)
     plain_in = [x.detach() for x in blend_in]
-    with torch.no_grad():
-        img_k, T_k, last = blend.forward_kernel(*idx, *plain_in, *tiles, cap)
-    g = torch.Generator(device=img_k.device).manual_seed(3)
-    g_img = torch.randn(img_k.shape, generator=g, device=img_k.device)
-    g_t = torch.randn(T_k.shape, generator=g, device=img_k.device)
-    grads_k = blend.backward_kernel(*idx, *plain_in, *tiles, T_k, last, g_img, g_t)
-    img_p, T_p = blend_tiles_plain(*idx, *blend_in, *tiles, PLAIN_CHUNK, PLAIN_MAX_CHUNKS)
-    out_p = (img_p * g_img).sum() + (T_p * g_t).sum()
-    grads_p = torch.autograd.grad(out_p, blend_in, retain_graph=True)
-    fwd_err = max(float((img_k - img_p.detach()).abs().max()),
-                  float((T_k - T_p.detach()).abs().max()))
-    bwd_abs = max(float((a - b).abs().max()) for a, b in zip(grads_k, grads_p))
-    bwd_rel = {k: max_rel(a, b) for k, a, b in zip(("d_mean2d", "d_conic", "d_opacity",
-                                                     "d_colour"), grads_k, grads_p)}
+    cmp = kernels_vs_plain(idx, blend_in, tiles, cap)
+    T_k, last, g_img, g_t = cmp["T"], cmp["last"], cmp["g_img"], cmp["g_T"]
+    fwd_err, bwd_abs, bwd_rel = cmp["fwd_err"], cmp["bwd_abs"], cmp["bwd_rel"]
+    out_p = cmp["plain_out"]
     log(f"phase 3  kernel vs plain at the main path's shapes ({n} splats, "
         f"{cams.width}x{cams.height}, {v} views, {ch} ch, {bins.gauss_idx.shape[0]} pairs, "
         f"{truncated(bins)} truncated, {int(bins.num_culled_pairs)} culled):")
@@ -368,6 +547,11 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
     bwd_bound = bound(bwd_bytes, bwd_ops)
     log("  pixel-pairs: " + ", ".join(f"{k} {val}" for k, val in work.items())
         + f"; fwd {fwd_bytes} B, {fwd_ops} ops; bwd {bwd_bytes} B, {bwd_ops} ops")
+    per_step = bwd_shuffles(ch)
+    shuffles = [work["warp_live"] * s for s in per_step]
+    log(f"  backward (warp, pair) steps with a live lane: {work['warp_live']}; warp shuffles "
+        f"to sum their {6 + ch} gradient values: {shuffles[0]} by a butterfly per value "
+        f"({per_step[0]} a step), {shuffles[1]} by the reduce-scatter ({per_step[1]} a step)")
     log(f"  blend_fwd {fwd_ms:.3f} ms (plain {plain_fwd_ms:.1f} ms, bound {fwd_bound[0]:.4f} ms "
         f"by {fwd_bound[1]}); blend_bwd {bwd_ms:.3f} ms (plain {plain_bwd_ms:.1f} ms, "
         f"bound {bwd_bound[0]:.4f} ms by {bwd_bound[1]})")
@@ -376,6 +560,7 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
         "num_culled_pairs": int(bins.num_culled_pairs),
         "num_truncated_pairs": truncated(bins),
         "pixel_pairs": work,
+        "bwd_shuffles": {"butterfly": shuffles[0], "reduce_scatter": shuffles[1]},
         "fwd": dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=plain_fwd_ms,
                     bound_ms=fwd_bound[0], bound_by=fwd_bound[1]),
         "bwd": dict(max_abs_err=bwd_abs, max_rel_err=bwd_rel, ms=bwd_ms,
@@ -698,20 +883,8 @@ def main() -> int:
     log(f"  kernels built from gsattack_torch/csrc in {build_s:.1f} s")
 
     phase_small(device, _tiles)
-
-    from gsattack_torch.attack import expand_viewpoints
-    from gsattack_torch.core.camera import stack_cameras
-    from gsattack_torch.ops.project import project
-    from gsattack_torch.ops.raster import auto_pairs_per_gaussian
-
-    scene = build_scene(100_000, seed=0, knn=1e-4, device=device)
-    ext = base_camera(800, 800)
-    cams = stack_cameras([v.build(device=device) for v in expand_viewpoints([ext], 4)])
-    with torch.no_grad():  # the pair capacity run_dagger's -1 resolves to
-        pairs = max(
-            auto_pairs_per_gaussian(project(scene, cams.view_at(i)), 800, 800)
-            for i in range(cams.num_views)
-        )
+    phase_edge_tiles(device)
+    scene, ext, cams, pairs = main_shapes(device)
     shapes = phase_main_shapes(scene, cams, pairs, _tiles)
     main = phase_main_path(scene, cams, ext, pairs, device)
     gathered = phase_gather(device)

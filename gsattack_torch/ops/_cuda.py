@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (`gsattack_torch/csrc/*.cu`).
 
-Every `.cu` file is compiled with `nvcc` for `sm_90a` into one shared
-library with plain C entry points, on first use, into
-`build/gsattack_torch/` under the repository root, named after the package
-and a hash of the sources (an edited source rebuilds). The library is loaded
-with ctypes; each ops module sets the `argtypes` of its own entry points.
-Importing this module needs neither CUDA nor a compiler.
+Every `.cu` file is compiled with `nvcc` for `sm_90a` (one `nvcc` per
+source, all started together) and linked into one shared library with plain
+C entry points, on first use, into `build/gsattack_torch/` under the
+repository root, named after the package and a hash of the sources (an
+edited source rebuilds). The library is loaded with ctypes; each ops module
+sets the `argtypes` of its own entry points. Importing this module needs
+neither CUDA nor a compiler.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build" / "gsattack_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _lib = None
@@ -55,16 +56,32 @@ def build(verbose: bool = False) -> Path:
     if out.exists() and not verbose:
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
+    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [BUILD / f"{src.stem}_{tag}.o" for src in sources]
+    compiles = [
+        [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-c", "-o", str(obj),
+         str(src)]
+        for src, obj in zip(sources, objs)
+    ]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in compiles]
+    results = [(cmd, *proc.communicate(), proc.returncode) for cmd, proc in zip(compiles, procs)]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stderr, end="")
+    try:
+        for cmd, _, err, rc in results:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{err}")
+            if verbose:
+                print(err, end="")
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
+                               f"{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     return out
 

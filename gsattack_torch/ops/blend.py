@@ -105,6 +105,8 @@ def backward_kernel(gauss_idx, tile_start, tile_end, mean2d, conic, opacity,
     opacity and colors, shaped like them."""
     global BWD_LAUNCHES
     v, _, n_ch = colors.shape
+    if g_img.data_ptr() % 16:  # the kernel reads g_img's tile rows in 16-byte pieces
+        g_img = g_img.clone()
     grads = [torch.zeros_like(x) for x in (mean2d, conic, opacity, colors)]
     rc = _load().gs_blend_bwd(
         mean2d.data_ptr(), conic.data_ptr(), opacity.data_ptr(), colors.data_ptr(),

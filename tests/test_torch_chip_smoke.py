@@ -27,7 +27,7 @@ def _serial_walk(gauss_idx, tile_start, tile_end, mean2d, conic, opacity, tiles,
     T = torch.ones(m, 256)
     last = torch.zeros(m, 256, dtype=torch.long)
     done = torch.zeros(m, 256, dtype=torch.bool)
-    counts = dict(fwd_eval=0, live=0, clamped=0)
+    counts = dict(fwd_eval=0, live=0, clamped=0, warp_live=0)
     for k in range(int(count.max())):
         valid = (k < count)[:, None]
         g = geom[gauss_idx[(start + k).clamp(max=gauss_idx.shape[0] - 1)].long()]
@@ -43,6 +43,8 @@ def _serial_walk(gauss_idx, tile_start, tile_end, mean2d, conic, opacity, tiles,
         comp = use & ~stop
         counts["live"] += int(comp.sum())
         counts["clamped"] += int((comp & (alpha_pre > 0.99)).sum())
+        # A warp is a tile's two-row group of 32 pixels (threads 32w..32w+31).
+        counts["warp_live"] += int(comp.reshape(m, 8, 32).any(-1).sum())
         T = torch.where(comp, test, T)
         last = torch.where(comp, k + 1, last)
     counts["stops"] = int(done.sum())
@@ -76,6 +78,31 @@ def test_pair_work_matches_serial_walk():
     assert got == want
     assert min(want["stops"], want["clamped"]) > 0
     assert want["live"] < want["bwd_eval"] < want["fwd_eval"]
+    # Some warp steps have a live lane, and most have several.
+    assert 0 < want["warp_live"] < want["live"]
+
+
+def test_bwd_shuffles_per_live_warp_step():
+    assert chip_smoke.bwd_shuffles(19) == (125, 31)
+    assert chip_smoke.bwd_shuffles(3) == (45, 16)
+
+
+def test_edge_tiles_reach_every_batch_edge_and_the_cap():
+    """Phase 2b's inputs: each tile's deepest last contributor is its capped
+    pair count (the serial walk's `last`), some live pairs pass the 0.99
+    cap, and `pair_work` counts them as the serial walk does."""
+    e = chip_smoke.edge_tile_inputs(3)
+    counts = chip_smoke.edge_tile_counts()
+    cap = chip_smoke.CHUNK * chip_smoke.MAX_CHUNKS
+    assert counts == [0, 1, 31, 32, 33, 63, 64, 65, cap - 1, cap, cap + 1]
+    args = [torch.from_numpy(e[k]) for k in ("gauss_idx", "tile_start", "tile_end",
+                                              "mean2d", "conic", "opacity", "colors")]
+    assert args[0].shape[0] == sum(counts) and sorted(args[0].tolist()) == list(range(sum(counts)))
+    last, want = _serial_walk(*args[:6], e["tiles"], cap)
+    deepest = last.reshape(16, len(counts), 16).amax(dim=(0, 2)).tolist()
+    assert deepest == [min(c, cap) for c in counts]
+    assert want["clamped"] > 0
+    assert chip_smoke.pair_work(args[:3], args[3:], e["tiles"], cap, last) == want
 
 
 def test_gather_bound_counts_index_distinct_row_and_output_bytes():

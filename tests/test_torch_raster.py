@@ -94,6 +94,45 @@ def test_blend_plain_matches_xla_blend_value_and_grads():
         assert max_rel_err(leaf.grad[0], r) <= 1e-4, name
 
 
+def test_blend_plain_matches_xla_blend_on_batch_edge_and_cap_tiles():
+    """`chip_smoke.edge_tile_inputs` at CH = 3 (tiles of 0, 1, B - 1, B,
+    B + 1 pairs for the kernels' staging batches, and of 2047, 2048 and 2049
+    around the cap) through the plain blend and the XLA blend, both capped
+    at 128 x 16 = 2048 pairs, with the tolerances of the plain-vs-XLA test."""
+    import chip_smoke
+
+    e = chip_smoke.edge_tile_inputs(3)
+    (tx, ty), chunk, max_chunks = e["tiles"], 128, 16
+    w, h = tx * 16, ty * 16
+    bins = jr.TileBins(jnp.asarray(e["gauss_idx"]), jnp.asarray(e["tile_start"][0]),
+                       jnp.asarray(e["tile_end"][0]), jnp.zeros((), jnp.int32))
+    leaves = [e[k][0] for k in ("mean2d", "conic", "opacity", "colors")]
+    rng = np.random.default_rng(12)
+    w_img = rng.normal(size=(h, w, 3)).astype(np.float32)
+    w_t = rng.normal(size=(h, w)).astype(np.float32)
+
+    def j_loss(m, c, o, col):
+        img, T = jr._blend_tiles(bins, m, c, o, col, w, h, chunk, max_chunks)
+        return jnp.sum(img * w_img) + jnp.sum(T * w_t), (img, T)
+
+    vg = jax.jit(jax.value_and_grad(j_loss, argnums=(0, 1, 2, 3), has_aux=True))
+    (_, (img_r, T_r)), g_ref = vg(*map(jnp.asarray, leaves))
+    tl = [torch.tensor(x)[None].requires_grad_(True) for x in leaves]
+    img, T = tr.blend_tiles_plain(
+        *(torch.from_numpy(e[k]) for k in ("gauss_idx", "tile_start", "tile_end")),
+        *tl, tx, ty, chunk, max_chunks,
+    )
+    np.testing.assert_allclose(np_(img[0]), np.asarray(img_r), atol=2e-5)
+    np.testing.assert_allclose(np_(T[0]), np.asarray(T_r), atol=2e-5)
+    ((img[0] * torch.tensor(w_img)).sum() + (T[0] * torch.tensor(w_t)).sum()).backward()
+    for name, leaf, r in zip(("mean2d", "conic", "opacity", "channels"), tl, g_ref):
+        assert np.abs(np.asarray(r)).max() > 0, name
+        assert max_rel_err(leaf.grad[0], r) <= 1e-4, name
+    # The 2049th pair of the last tile is past the cap: no gradient reaches it.
+    past = e["gauss_idx"][e["tile_end"][0, -1] - 1]
+    assert all(float(leaf.grad[0, past].abs().max()) == 0.0 for leaf in tl)
+
+
 def _pallas_pairs(rng, n, ch, tile_x):
     """n random pairs on the 16x16 tile at column `tile_x`: means in and
     around the tile, PD conics, opacities up to 0.999 (so the 0.99 cap
