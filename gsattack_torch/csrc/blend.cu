@@ -79,10 +79,27 @@ __device__ __forceinline__ Alpha pair_alpha(float dx, float dy, float A, float B
   return r;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// Lane q of the warp ends with the warp's sum of v[q] (for NP = 16, lanes q
+// and q + 16 both do): each halving step keeps the half of v that bit H of
+// the lane selects and adds the partner lane's copy of it.
+template <int H, int NP>
+__device__ __forceinline__ void halve(float (&v)[NP], int lane) {
+  const bool upper = (lane & H) != 0;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? v[i] : v[i + H];
+    const float keep = upper ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+  }
+  if constexpr (H > 1) halve<H / 2, NP>(v, lane);
+}
+
+template <int NP>
+__device__ __forceinline__ float reduce_scatter(float (&v)[NP], int lane) {
+  static_assert(NP == 16 || NP == 32, "one value per lane or half-lane");
+  halve<NP / 2, NP>(v, lane);
+  if constexpr (NP == 16) return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 16);
+  return v[0];
 }
 
 struct TileCtx {
@@ -179,6 +196,7 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
                  float* __restrict__ d_mean2d, float* __restrict__ d_conic,
                  float* __restrict__ d_opacity, float* __restrict__ d_colors) {
   constexpr int NV = 6 + CH;  // dmx, dmy, dA, dB, dC, dop, dcol[CH]
+  constexpr int NP = NV <= 16 ? 16 : 32;  // values padded for the reduce-scatter
   __shared__ float s_geom[6][BWD_BATCH];
   __shared__ float s_col[BWD_BATCH * CH];
   __shared__ int s_gid[BWD_BATCH];
@@ -222,9 +240,9 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
     __syncthreads();
 
     for (int k = n - 1; k >= 0; --k) {
-      float vals[NV];
+      float vals[NP];
 #pragma unroll
-      for (int q = 0; q < NV; ++q) vals[q] = 0.0f;
+      for (int q = 0; q < NP; ++q) vals[q] = 0.0f;
       bool live = false;
       if (lo + k < my_last) {
         const float dx = pxf - s_geom[0][k], dy = pyf - s_geom[1][k];
@@ -256,14 +274,8 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
         }
       }
       const bool any = __ballot_sync(0xffffffffu, live) != 0u;
-      if (any) {
-#pragma unroll
-        for (int q = 0; q < NV; ++q) vals[q] = warp_sum(vals[q]);
-      }
-      if (lane == 0) {
-#pragma unroll
-        for (int q = 0; q < NV; ++q) s_red[k][warp][q] = vals[q];
-      }
+      const float sum = any ? reduce_scatter<NP>(vals, lane) : 0.0f;
+      if (lane < NV) s_red[k][warp][lane] = sum;
     }
     __syncthreads();
 
