@@ -200,7 +200,7 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
   __shared__ float s_geom[6][BWD_BATCH];
   __shared__ float s_col[BWD_BATCH * CH];
   __shared__ int s_gid[BWD_BATCH];
-  __shared__ float s_red[BWD_BATCH][NWARP][NV];
+  __shared__ float s_acc[BWD_BATCH * NP];
   __shared__ int s_hi;
 
   // The forward's cap is already folded into `last`.
@@ -216,6 +216,7 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
   float S = T * g_T[c.pix];
 
   if (t == 0) s_hi = 0;
+  for (int i = t; i < BWD_BATCH * NP; i += BLOCK) s_acc[i] = 0.0f;
   __syncthreads();
   atomicMax(&s_hi, my_last);
   __syncthreads();
@@ -273,18 +274,18 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
           for (int ch = 0; ch < CH; ++ch) vals[6 + ch] = w * gC[ch];
         }
       }
-      const bool any = __ballot_sync(0xffffffffu, live) != 0u;
-      const float sum = any ? reduce_scatter<NP>(vals, lane) : 0.0f;
-      if (lane < NV) s_red[k][warp][lane] = sum;
+      if (__ballot_sync(0xffffffffu, live) != 0u) {
+        const float sum = reduce_scatter<NP>(vals, lane);
+        if (lane < NV && sum != 0.0f) atomicAdd(&s_acc[k * NP + lane], sum);
+      }
     }
     __syncthreads();
 
     for (int i = t; i < n * NV; i += BLOCK) {
       const int k = i / NV, q = i % NV;
-      float sum = 0.0f;
-#pragma unroll
-      for (int w = 0; w < NWARP; ++w) sum += s_red[k][w][q];
+      const float sum = s_acc[k * NP + q];
       if (sum == 0.0f) continue;
+      s_acc[k * NP + q] = 0.0f;
       const size_t g = (size_t)s_gid[k];
       float* dst = q < 2   ? d_mean2d + 2 * g + q
                    : q < 5 ? d_conic + 3 * g + (q - 2)
