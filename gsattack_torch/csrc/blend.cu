@@ -10,25 +10,44 @@
 // *before* the pair whose T * (1 - alpha) would fall below 1e-4 (that pair
 // is not composited). A tile blends at most `cap` pairs.
 //
-// Design. One CTA of 256 threads per (tile, view), one thread per pixel.
-// The CTA stages batches of pairs in shared memory, gathered through
-// gauss_idx from the per-gaussian arrays, and every thread composites its
-// pixel serially; the serial walk is exact, so none of the TPU kernel's
-// triangular-matmul cumsums or field-major packing carries over. The CTA
-// leaves once every pixel is done (__syncthreads_count). The forward saves
-// the Inria form of state for the backward: final T and, per pixel, the
-// count of pairs up to and including its last contributor.
+// Design. One CTA of 256 threads per (tile, view), one thread per pixel;
+// each thread walks its pixel's pairs serially, so the 1e-4 stop holds
+// literally and none of the TPU kernel's triangular-matmul cumsums or
+// field-major packing carries over. The forward saves the Inria form of
+// state for the backward: final T and, per pixel, the count of pairs up to
+// and including its last contributor.
+//
+// Staging (both kernels). The CTA stages batches of pairs in shared memory,
+// gathered through gauss_idx. A pair's 6 + CH fields are loaded by a group
+// of NP lanes (NP = 32 for CH = 19, 16 for CH = 3), lane q taking field q
+// with one 4-byte cp.async, into a packed record: {mx, my, A, B} as a
+// float4, {C, op} as a float2, the colours from float 8 on as float4s.
+// The gaussian indices of the batch after next are loaded into registers
+// while a batch is walked, and the next batch's cp.asyncs are in flight, so
+// a batch costs one barrier. The forward stages 64 pairs at a time (a tile
+// averages ~59 on the main path) in two buffers and leaves once every pixel
+// is done (__syncthreads_count); its image tile is composed in shared
+// memory and written with 16-byte stores, a tile row (16 * CH floats,
+// contiguous) at a time. T and `last` are written per pixel, coalesced.
 //
 // The backward walks each pixel's pairs back to front from its last
 // contributor, recovering the transmittance before each pair as
 // T / (1 - alpha). The suffix S is seeded with T_final * gT, so the
 // gradient through the returned transmittance is included. The power
 // gradient is zeroed where the pre-clamp alpha exceeds 0.99, as the
-// reference (and JAX's AD of jnp.minimum) does. Each pair's gradient is
-// summed over the tile's pixels (warp shuffles, then shared memory across
-// the 8 warps) and added per gaussian with atomicAdd, so the sum order
-// changes from run to run: results agree with the plain version to float
-// rounding, not bit for bit.
+// reference (and JAX's AD of jnp.minimum) does. The tile's g_img comes in
+// through shared memory (16-byte cp.async, then each thread reads its CH
+// values at an odd word stride: no bank conflicts). Per (warp, pair) with a
+// live lane, the 6 + CH gradient values, padded to NP, are summed over the
+// warp by a reduce-scatter: five (four, and one add, for NP = 16) halving
+// steps of __shfl_xor_sync leave lane q with the warp's sum of value q,
+// 31 shuffles (16 for CH = 3) where 25 butterflies took 125 (45). Lane q
+// adds it into s_acc[pair][q] with a shared-memory atomicAdd; after the
+// batch one thread per nonzero (pair, value) adds it to the gaussian's
+// gradient with a global atomicAdd. The staging ring has three buffers and
+// s_acc two, so that batch b - 1's sums are flushed while batch b is
+// walked. The sum order changes from run to run: results agree with the
+// plain version to float rounding, not bit for bit.
 //
 // What bounds it on an H100: every (pixel, pair) a kernel evaluates costs
 // the alpha test, 17 fp32 operations with one exp; a live (composited)
@@ -37,9 +56,11 @@
 // fail the test. Per pair a CTA gathers (6 + CH) * 4 bytes plus a 4-byte
 // index; the image, T and `last` are written (read back, with the
 // gradients, in the backward) once per pixel. chip_smoke.py counts both
-// from a run's inputs. This simple version spends its time on serial
-// per-pixel walks, uncoalesced gathers and (backward) shuffle reductions
-// and atomics. Making it fast is later work.
+// from a run's inputs: bytes bound both kernels. Neither kernel reaches
+// that bound: the forward waits on each CTA's two dependent gathers
+// (indices, then fields) and on its serial walk; the backward's time is
+// the per-(warp, pair) work of live warps, the reduce-scatter's shuffles
+// first (PERF.md has the times of each design step).
 //
 // The power and alpha of a (pixel, pair) are computed by one function with
 // rounded intrinsics (no FMA contraction), so the forward and the backward
@@ -52,7 +73,10 @@ namespace {
 constexpr int TILE = 16;
 constexpr int BLOCK = TILE * TILE;
 constexpr int NWARP = BLOCK / 32;
+constexpr int FWD_BATCH = 64;  // pairs staged per forward step
 constexpr int BWD_BATCH = 32;  // pairs staged per backward step
+constexpr int BWD_MIN_CTAS = 2;  // backward CTAs per SM that ptxas must fit
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float T_EPS = 1e-4f;
@@ -79,6 +103,99 @@ __device__ __forceinline__ Alpha pair_alpha(float dx, float dy, float A, float B
   return r;
 }
 
+// The staged record of one pair: {mx, my, A, B}, {C, op, -, -}, then the
+// colours, padded to a multiple of 4.
+template <int CH>
+struct Pairs {
+  static constexpr int NV = 6 + CH;                  // dmx, dmy, dA, dB, dC, dop, dcol[CH]
+  static constexpr int NP = NV <= 16 ? 16 : 32;      // lanes per pair; padded value count
+  static constexpr int CH4 = (CH + 3) / 4;           // float4s of colour
+  static constexpr int STRIDE = 8 + 4 * CH4;         // floats per staged pair
+  static_assert(NV <= 32, "a warp sums at most 32 values per pair");
+};
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One thread's share of staging a batch: the pair slots t / NP + i * (BLOCK
+// / NP), field q = t % NP of each. `load` brings the slots' gaussian
+// indices into registers; `issue` starts the fields' copies into a buffer.
+template <int CH, int BATCH>
+struct Stager {
+  using P = Pairs<CH>;
+  static constexpr int STEP = BLOCK / P::NP;  // pairs staged per pass of the CTA
+  static constexpr int ITER = BATCH / STEP;
+  static_assert(ITER * STEP == BATCH, "a batch is whole passes of the CTA");
+
+  int gid[ITER];
+  int k0;             // this thread's first pair slot
+  const float* base;  // its field's array, offset to the field
+  int stride;         // floats per gaussian in that array
+  int pos;            // its field's place in the staged record
+  bool on;            // q < NV: the thread has a field to load
+  bool first;         // q == 0: the thread records the pair's gaussian
+
+  __device__ __forceinline__ Stager(int t, const float* mean2d, const float* conic,
+                                    const float* opacity, const float* colors) {
+    const int q = t % P::NP;
+    k0 = t / P::NP;
+    on = q < P::NV;
+    first = q == 0;
+    if (q < 2) {
+      base = mean2d + q, stride = 2, pos = q;
+    } else if (q < 5) {
+      base = conic + (q - 2), stride = 3, pos = q;
+    } else if (q == 5) {
+      base = opacity, stride = 1, pos = 5;
+    } else {
+      base = colors + (q - 6), stride = CH, pos = q + 2;
+    }
+  }
+
+  __device__ __forceinline__ void load(const int* __restrict__ gauss_idx, int first_pair,
+                                       int n) {
+#pragma unroll
+    for (int i = 0; i < ITER; ++i) {
+      const int k = k0 + i * STEP;
+      gid[i] = k < n ? __ldg(gauss_idx + first_pair + k) : -1;
+    }
+  }
+
+  __device__ __forceinline__ void issue(float* buf, int* gids) {
+#pragma unroll
+    for (int i = 0; i < ITER; ++i) {
+      const int k = k0 + i * STEP;
+      if (gid[i] >= 0) {
+        if (on) cp_async4(buf + k * P::STRIDE + pos, base + (size_t)gid[i] * stride);
+        if (gids != nullptr && first) gids[k] = gid[i];
+      }
+    }
+    cp_async_commit();
+  }
+};
+
 // Lane q of the warp ends with the warp's sum of v[q] (for NP = 16, lanes q
 // and q + 16 both do): each halving step keeps the half of v that bit H of
 // the lane selects and adds the partner lane's copy of it.
@@ -89,7 +206,7 @@ __device__ __forceinline__ void halve(float (&v)[NP], int lane) {
   for (int i = 0; i < H; ++i) {
     const float send = upper ? v[i] : v[i + H];
     const float keep = upper ? v[i + H] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+    v[i] = keep + __shfl_xor_sync(FULL, send, H);
   }
   if constexpr (H > 1) halve<H / 2, NP>(v, lane);
 }
@@ -98,12 +215,12 @@ template <int NP>
 __device__ __forceinline__ float reduce_scatter(float (&v)[NP], int lane) {
   static_assert(NP == 16 || NP == 32, "one value per lane or half-lane");
   halve<NP / 2, NP>(v, lane);
-  if constexpr (NP == 16) return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 16);
+  if constexpr (NP == 16) return v[0] + __shfl_xor_sync(FULL, v[0], 16);
   return v[0];
 }
 
 struct TileCtx {
-  int tile, view, px, py, pix, start, count;
+  int tile, view, x0, y0, px, py, pix, start, count;
 };
 
 __device__ __forceinline__ TileCtx tile_ctx(const int* tile_start, const int* tile_end,
@@ -112,14 +229,25 @@ __device__ __forceinline__ TileCtx tile_ctx(const int* tile_start, const int* ti
   c.tile = blockIdx.x;
   c.view = blockIdx.y;
   const int t = threadIdx.x;
-  c.px = (c.tile % tiles_x) * TILE + t % TILE;
-  c.py = (c.tile / tiles_x) * TILE + t / TILE;
+  c.x0 = (c.tile % tiles_x) * TILE;
+  c.y0 = (c.tile / tiles_x) * TILE;
+  c.px = c.x0 + t % TILE;
+  c.py = c.y0 + t / TILE;
   const int w_pad = tiles_x * TILE, h_pad = tiles_y * TILE;
   c.pix = (c.view * h_pad + c.py) * w_pad + c.px;
   const int r = c.view * tiles_x * tiles_y + c.tile;
   c.start = tile_start[r];
   c.count = min(max(tile_end[r] - c.start, 0), cap);
   return c;
+}
+
+// Offset in floats of the first pixel of row `r` of the tile in a
+// (V, H_pad, W_pad, CH) image; a row is 16 * CH contiguous floats.
+template <int CH>
+__device__ __forceinline__ size_t tile_row(const TileCtx& c, int r, int tiles_x,
+                                           int tiles_y) {
+  const int w_pad = tiles_x * TILE, h_pad = tiles_y * TILE;
+  return ((size_t)(c.view * h_pad + c.y0 + r) * w_pad + c.x0) * CH;
 }
 
 template <int CH>
@@ -186,7 +314,7 @@ blend_fwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
 }
 
 template <int CH>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, BWD_MIN_CTAS)
 blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ conic,
                  const float* __restrict__ opacity, const float* __restrict__ colors,
                  const int* __restrict__ gauss_idx, const int* __restrict__ tile_start,
@@ -195,105 +323,131 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
                  const float* __restrict__ g_img, const float* __restrict__ g_T,
                  float* __restrict__ d_mean2d, float* __restrict__ d_conic,
                  float* __restrict__ d_opacity, float* __restrict__ d_colors) {
-  constexpr int NV = 6 + CH;  // dmx, dmy, dA, dB, dC, dop, dcol[CH]
-  constexpr int NP = NV <= 16 ? 16 : 32;  // values padded for the reduce-scatter
-  __shared__ float s_geom[6][BWD_BATCH];
-  __shared__ float s_col[BWD_BATCH * CH];
-  __shared__ int s_gid[BWD_BATCH];
-  __shared__ float s_acc[BWD_BATCH * NP];
-  __shared__ int s_hi;
+  using P = Pairs<CH>;
+  constexpr int NV = P::NV, NP = P::NP;
+  constexpr int STAGE = BWD_BATCH * P::STRIDE;
+  __shared__ __align__(16) float s_pairs[3 * STAGE];    // ring of staged batches
+  __shared__ float s_acc[2][BWD_BATCH * NP];            // per-pair sums over the tile
+  __shared__ int s_gid[3][BWD_BATCH];
+  __shared__ int s_wmax[NWARP];
 
   // The forward's cap is already folded into `last`.
   const TileCtx c = tile_ctx(tile_start, tile_end, tiles_x, tiles_y, 0x7fffffff);
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const float pxf = (float)c.px, pyf = (float)c.py;
 
+  for (int i = t; i < 2 * BWD_BATCH * NP; i += BLOCK) (&s_acc[0][0])[i] = 0.0f;
+
   const int my_last = last[c.pix];
   float T = out_T[c.pix];
+  float S = T * g_T[c.pix];
+  const int wmax = __reduce_max_sync(FULL, my_last);
+  if (lane == 0) s_wmax[warp] = wmax;
+  __syncthreads();
+  int n_hi = 0;
+#pragma unroll
+  for (int w = 0; w < NWARP; ++w) n_hi = max(n_hi, s_wmax[w]);
+  if (n_hi == 0) {  // no pixel of the tile has a contributor
+    cp_async_wait<0>();
+    return;
+  }
+
+  // Batch b holds pairs [lo(b), lo(b) + n(b)), from the top down.
+  const int nb = (n_hi + BWD_BATCH - 1) / BWD_BATCH;
+  const auto batch_lo = [&](int b) { return max(n_hi - (b + 1) * BWD_BATCH, 0); };
+  const auto batch_n = [&](int b) { return n_hi - b * BWD_BATCH - batch_lo(b); };
+
+  Stager<CH, BWD_BATCH> st(t, mean2d, conic, opacity, colors);
+  st.load(gauss_idx, c.start + batch_lo(0), batch_n(0));
+  st.issue(s_pairs, s_gid[0]);
+  if (nb > 1) st.load(gauss_idx, c.start + batch_lo(1), batch_n(1));
   float gC[CH];
 #pragma unroll
   for (int ch = 0; ch < CH; ++ch) gC[ch] = g_img[(size_t)c.pix * CH + ch];
-  float S = T * g_T[c.pix];
 
-  if (t == 0) s_hi = 0;
-  for (int i = t; i < BWD_BATCH * NP; i += BLOCK) s_acc[i] = 0.0f;
-  __syncthreads();
-  atomicMax(&s_hi, my_last);
-  __syncthreads();
-  const int n_hi = s_hi;
-
-  for (int hi = n_hi; hi > 0; hi -= BWD_BATCH) {
-    const int lo = max(hi - BWD_BATCH, 0);
-    const int n = hi - lo;
-    __syncthreads();  // the previous batch's reduction has read its buffers
-    if (t < n) {
-      const int g = gauss_idx[c.start + lo + t];
-      s_gid[t] = g;
-      s_geom[0][t] = mean2d[2 * g];
-      s_geom[1][t] = mean2d[2 * g + 1];
-      s_geom[2][t] = conic[3 * g];
-      s_geom[3][t] = conic[3 * g + 1];
-      s_geom[4][t] = conic[3 * g + 2];
-      s_geom[5][t] = opacity[g];
-#pragma unroll
-      for (int ch = 0; ch < CH; ++ch) s_col[t * CH + ch] = colors[(size_t)g * CH + ch];
-    }
-    __syncthreads();
-
-    for (int k = n - 1; k >= 0; --k) {
-      float vals[NP];
-#pragma unroll
-      for (int q = 0; q < NP; ++q) vals[q] = 0.0f;
-      bool live = false;
-      if (lo + k < my_last) {
-        const float dx = pxf - s_geom[0][k], dy = pyf - s_geom[1][k];
-        const float A = s_geom[2][k], B = s_geom[3][k], C = s_geom[4][k];
-        const Alpha a = pair_alpha(dx, dy, A, B, C, s_geom[5][k]);
-        if (a.use) {
-          live = true;
-          const float one_m = 1.0f - a.alpha;
-          const float t_exc = T / one_m;
-          float cg = 0.0f;
-#pragma unroll
-          for (int ch = 0; ch < CH; ++ch) cg += s_col[k * CH + ch] * gC[ch];
-          const float w = a.alpha * t_exc;
-          const float dalpha = t_exc * cg - S / one_m;
-          S += w * cg;
-          T = t_exc;
-          const bool clamped = a.alpha_pre > ALPHA_MAX;
-          const float dpower = clamped ? 0.0f : dalpha * a.alpha_pre;
-          vals[0] = dpower * (A * dx + B * dy);
-          vals[1] = dpower * (C * dy + B * dx);
-          vals[2] = dpower * (-0.5f * dx * dx);
-          vals[3] = dpower * (-dx * dy);
-          vals[4] = dpower * (-0.5f * dy * dy);
-          // d/d_opacity = dalpha * exp(power) = dpower / op, without the
-          // division (and so without the reference's op = 0 guard).
-          vals[5] = clamped ? 0.0f : dalpha * a.expo;
-#pragma unroll
-          for (int ch = 0; ch < CH; ++ch) vals[6 + ch] = w * gC[ch];
-        }
-      }
-      if (__ballot_sync(0xffffffffu, live) != 0u) {
-        const float sum = reduce_scatter<NP>(vals, lane);
-        if (lane < NV && sum != 0.0f) atomicAdd(&s_acc[k * NP + lane], sum);
-      }
-    }
-    __syncthreads();
-
+  // Batch b's sums, from s_acc to the per-gaussian gradients.
+  const auto flush = [&](int b) {
+    float* acc = s_acc[b & 1];
+    const int* gids = s_gid[b % 3];
+    const int n = batch_n(b);
     for (int i = t; i < n * NV; i += BLOCK) {
-      const int k = i / NV, q = i % NV;
-      const float sum = s_acc[k * NP + q];
+      const int k = i / NV, q = i - k * NV;
+      const float sum = acc[k * NP + q];
       if (sum == 0.0f) continue;
-      s_acc[k * NP + q] = 0.0f;
-      const size_t g = (size_t)s_gid[k];
+      acc[k * NP + q] = 0.0f;
+      const size_t g = (size_t)gids[k];
       float* dst = q < 2   ? d_mean2d + 2 * g + q
                    : q < 5 ? d_conic + 3 * g + (q - 2)
                    : q == 5 ? d_opacity + g
                             : d_colors + g * CH + (q - 6);
       atomicAdd(dst, sum);
     }
+  };
+
+  for (int b = 0; b < nb; ++b) {
+    cp_async_wait<0>();
+    // Batch b has landed; every thread has walked batch b - 1 and flushed
+    // batch b - 2, whose buffers the next batch and this one's sums reuse.
+    __syncthreads();
+    if (b + 1 < nb) {
+      st.issue(s_pairs + ((b + 1) % 3) * STAGE, s_gid[(b + 1) % 3]);
+      if (b + 2 < nb) st.load(gauss_idx, c.start + batch_lo(b + 2), batch_n(b + 2));
+    }
+    if (b > 0) flush(b - 1);
+
+    const float* buf = s_pairs + (b % 3) * STAGE;
+    float* acc = s_acc[b & 1];
+    const int lo = batch_lo(b);
+    for (int k = batch_n(b) - 1; k >= 0; --k) {
+      const float* pk = buf + k * P::STRIDE;
+      float dx = 0.0f, dy = 0.0f, A = 0.0f, B = 0.0f, C = 0.0f;
+      Alpha a;
+      a.use = false;
+      if (lo + k < my_last) {
+        const float4 g0 = *reinterpret_cast<const float4*>(pk);
+        const float2 g1 = *reinterpret_cast<const float2*>(pk + 4);
+        dx = pxf - g0.x, dy = pyf - g0.y, A = g0.z, B = g0.w, C = g1.x;
+        a = pair_alpha(dx, dy, A, B, C, g1.y);
+      }
+      if (__ballot_sync(FULL, a.use) == 0u) continue;
+      float v[NP];
+#pragma unroll
+      for (int q = 0; q < NP; ++q) v[q] = 0.0f;
+      if (a.use) {
+        const float one_m = 1.0f - a.alpha;
+        const float t_exc = T / one_m;
+        float cg = 0.0f;
+#pragma unroll
+        for (int j = 0; j < P::CH4; ++j) {
+          const float4 col = *reinterpret_cast<const float4*>(pk + 8 + 4 * j);
+          cg += col.x * gC[4 * j];
+          if (4 * j + 1 < CH) cg += col.y * gC[4 * j + 1];
+          if (4 * j + 2 < CH) cg += col.z * gC[4 * j + 2];
+          if (4 * j + 3 < CH) cg += col.w * gC[4 * j + 3];
+        }
+        const float w = a.alpha * t_exc;
+        const float dalpha = t_exc * cg - S / one_m;
+        S += w * cg;
+        T = t_exc;
+        const bool clamped = a.alpha_pre > ALPHA_MAX;
+        const float dpower = clamped ? 0.0f : dalpha * a.alpha_pre;
+        v[0] = dpower * (A * dx + B * dy);
+        v[1] = dpower * (C * dy + B * dx);
+        v[2] = dpower * (-0.5f * dx * dx);
+        v[3] = dpower * (-dx * dy);
+        v[4] = dpower * (-0.5f * dy * dy);
+        // d/d_opacity = dalpha * exp(power) = dpower / op, without the
+        // division (and so without the reference's op = 0 guard).
+        v[5] = clamped ? 0.0f : dalpha * a.expo;
+#pragma unroll
+        for (int ch = 0; ch < CH; ++ch) v[6 + ch] = w * gC[ch];
+      }
+      const float sum = reduce_scatter<NP>(v, lane);
+      if (lane < NV && sum != 0.0f) atomicAdd(acc + k * NP + lane, sum);
+    }
   }
+  __syncthreads();
+  flush(nb - 1);
 }
 
 template <int CH>
@@ -329,7 +483,8 @@ constexpr int ERR_CHANNELS = -1;  // no kernel instantiated for this CH
 // Plain C entry points for ctypes. Each returns cudaGetLastError() after
 // its launch (0 = launched), or ERR_CHANNELS for an unsupported channel
 // count. Pointers are device pointers; all float arrays are contiguous
-// float32 and all index arrays int32. The image is (V, H_pad, W_pad, CH).
+// float32 and all index arrays int32. The image is (V, H_pad, W_pad, CH),
+// 16-byte aligned (as every PyTorch allocation is).
 extern "C" int gs_blend_fwd(const float* mean2d, const float* conic,
                             const float* opacity, const float* colors,
                             const int* gauss_idx, const int* tile_start,
