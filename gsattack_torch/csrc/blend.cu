@@ -326,6 +326,7 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
   using P = Pairs<CH>;
   constexpr int NV = P::NV, NP = P::NP;
   constexpr int STAGE = BWD_BATCH * P::STRIDE;
+  __shared__ __align__(16) float s_img[BLOCK * CH];     // the tile's g_img
   __shared__ __align__(16) float s_pairs[3 * STAGE];    // ring of staged batches
   __shared__ float s_acc[2][BWD_BATCH * NP];            // per-pair sums over the tile
   __shared__ int s_gid[3][BWD_BATCH];
@@ -336,6 +337,13 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const float pxf = (float)c.px, pyf = (float)c.py;
 
+  constexpr int ROW4 = 4 * CH;
+  for (int i = t; i < TILE * ROW4; i += BLOCK) {
+    const int r = i / ROW4, j = i - r * ROW4;
+    cp_async16(s_img + r * TILE * CH + 4 * j,
+               g_img + tile_row<CH>(c, r, tiles_x, tiles_y) + 4 * j);
+  }
+  cp_async_commit();
   for (int i = t; i < 2 * BWD_BATCH * NP; i += BLOCK) (&s_acc[0][0])[i] = 0.0f;
 
   const int my_last = last[c.pix];
@@ -361,9 +369,11 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
   st.load(gauss_idx, c.start + batch_lo(0), batch_n(0));
   st.issue(s_pairs, s_gid[0]);
   if (nb > 1) st.load(gauss_idx, c.start + batch_lo(1), batch_n(1));
+  cp_async_wait<1>();  // the g_img tile; batch 0 may still be in flight
+  __syncthreads();
   float gC[CH];
 #pragma unroll
-  for (int ch = 0; ch < CH; ++ch) gC[ch] = g_img[(size_t)c.pix * CH + ch];
+  for (int ch = 0; ch < CH; ++ch) gC[ch] = s_img[t * CH + ch];
 
   // Batch b's sums, from s_acc to the per-gaussian gradients.
   const auto flush = [&](int b) {
