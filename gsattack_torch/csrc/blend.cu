@@ -258,12 +258,24 @@ blend_fwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
                  const int* __restrict__ tile_end, int tiles_x, int tiles_y, int cap,
                  float* __restrict__ out_img, float* __restrict__ out_T,
                  int* __restrict__ out_last) {
-  __shared__ float s_geom[6][BLOCK];
-  __shared__ float s_col[BLOCK * CH];
+  using P = Pairs<CH>;
+  constexpr int STAGE = FWD_BATCH * P::STRIDE;  // floats per staging buffer
+  // The two staging buffers, then the image tile in the same memory.
+  constexpr int SMEM = 2 * STAGE;
+  __shared__ __align__(16) float smem[SMEM];
 
   const TileCtx c = tile_ctx(tile_start, tile_end, tiles_x, tiles_y, cap);
   const int t = threadIdx.x;
   const float pxf = (float)c.px, pyf = (float)c.py;
+  const int nb = (c.count + FWD_BATCH - 1) / FWD_BATCH;
+  const auto batch_n = [&](int b) { return min(FWD_BATCH, c.count - b * FWD_BATCH); };
+
+  Stager<CH, FWD_BATCH> st(t, mean2d, conic, opacity, colors);
+  if (nb > 0) {
+    st.load(gauss_idx, c.start, batch_n(0));
+    st.issue(smem, nullptr);
+  }
+  if (nb > 1) st.load(gauss_idx, c.start + FWD_BATCH, batch_n(1));
 
   float acc[CH];
 #pragma unroll
@@ -272,27 +284,21 @@ blend_fwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
   int last = 0;
   bool done = false;
 
-  for (int b0 = 0; b0 < c.count; b0 += BLOCK) {
-    // Also the barrier that lets the previous batch's shared data be
-    // overwritten.
+  for (int b = 0; b < nb; ++b) {
+    cp_async_wait<0>();
+    // Also the barrier that frees the buffer the next batch goes into.
     if (__syncthreads_count(done) == BLOCK) break;
-    const int j = b0 + t;
-    if (j < c.count) {
-      const int g = gauss_idx[c.start + j];
-      s_geom[0][t] = mean2d[2 * g];
-      s_geom[1][t] = mean2d[2 * g + 1];
-      s_geom[2][t] = conic[3 * g];
-      s_geom[3][t] = conic[3 * g + 1];
-      s_geom[4][t] = conic[3 * g + 2];
-      s_geom[5][t] = opacity[g];
-#pragma unroll
-      for (int ch = 0; ch < CH; ++ch) s_col[t * CH + ch] = colors[(size_t)g * CH + ch];
+    if (b + 1 < nb) {
+      st.issue(smem + ((b + 1) & 1) * STAGE, nullptr);
+      if (b + 2 < nb) st.load(gauss_idx, c.start + (b + 2) * FWD_BATCH, batch_n(b + 2));
     }
-    __syncthreads();
-    const int n = min(BLOCK, c.count - b0);
+    const float* buf = smem + (b & 1) * STAGE;
+    const int b0 = b * FWD_BATCH, n = batch_n(b);
     for (int k = 0; k < n && !done; ++k) {
-      const Alpha a = pair_alpha(pxf - s_geom[0][k], pyf - s_geom[1][k], s_geom[2][k],
-                                 s_geom[3][k], s_geom[4][k], s_geom[5][k]);
+      const float* pk = buf + k * P::STRIDE;
+      const float4 g0 = *reinterpret_cast<const float4*>(pk);
+      const float2 g1 = *reinterpret_cast<const float2*>(pk + 4);
+      const Alpha a = pair_alpha(pxf - g0.x, pyf - g0.y, g0.z, g0.w, g1.x, g1.y);
       if (!a.use) continue;
       const float test = T * (1.0f - a.alpha);
       if (test < T_EPS) {
@@ -301,7 +307,13 @@ blend_fwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
       }
       const float w = a.alpha * T;
 #pragma unroll
-      for (int ch = 0; ch < CH; ++ch) acc[ch] += w * s_col[k * CH + ch];
+      for (int j = 0; j < P::CH4; ++j) {
+        const float4 col = *reinterpret_cast<const float4*>(pk + 8 + 4 * j);
+        acc[4 * j] += w * col.x;
+        if (4 * j + 1 < CH) acc[4 * j + 1] += w * col.y;
+        if (4 * j + 2 < CH) acc[4 * j + 2] += w * col.z;
+        if (4 * j + 3 < CH) acc[4 * j + 3] += w * col.w;
+      }
       T = test;
       last = b0 + k + 1;
     }
