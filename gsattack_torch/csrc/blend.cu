@@ -261,7 +261,7 @@ blend_fwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
   using P = Pairs<CH>;
   constexpr int STAGE = FWD_BATCH * P::STRIDE;  // floats per staging buffer
   // The two staging buffers, then the image tile in the same memory.
-  constexpr int SMEM = 2 * STAGE;
+  constexpr int SMEM = 2 * STAGE > BLOCK * CH ? 2 * STAGE : BLOCK * CH;
   __shared__ __align__(16) float smem[SMEM];
 
   const TileCtx c = tile_ctx(tile_start, tile_end, tiles_x, tiles_y, cap);
@@ -319,10 +319,18 @@ blend_fwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
     }
   }
 
-#pragma unroll
-  for (int ch = 0; ch < CH; ++ch) out_img[(size_t)c.pix * CH + ch] = acc[ch];
   out_T[c.pix] = T;
   out_last[c.pix] = last;
+  __syncthreads();  // every thread has left the walk: the buffers become the image
+#pragma unroll
+  for (int ch = 0; ch < CH; ++ch) smem[t * CH + ch] = acc[ch];
+  __syncthreads();
+  constexpr int ROW4 = 4 * CH;  // float4s in a tile row
+  for (int i = t; i < TILE * ROW4; i += BLOCK) {
+    const int r = i / ROW4, j = i - r * ROW4;
+    *reinterpret_cast<float4*>(out_img + tile_row<CH>(c, r, tiles_x, tiles_y) + 4 * j) =
+        *reinterpret_cast<const float4*>(smem + r * TILE * CH + 4 * j);
+  }
 }
 
 template <int CH>
