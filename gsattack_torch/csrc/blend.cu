@@ -75,7 +75,7 @@ constexpr int BLOCK = TILE * TILE;
 constexpr int NWARP = BLOCK / 32;
 constexpr int FWD_BATCH = 64;  // pairs staged per forward step
 constexpr int BWD_BATCH = 32;  // pairs staged per backward step
-constexpr int BWD_MIN_CTAS = 2;  // backward CTAs per SM that ptxas must fit
+constexpr int BWD_MIN_CTAS = 4;  // backward CTAs per SM that ptxas must fit
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float ALPHA_MIN = 1.0f / 255.0f;
 constexpr float ALPHA_MAX = 0.99f;
@@ -196,6 +196,40 @@ struct Stager {
   }
 };
 
+// Stage pairs [first, first + n) of gauss_idx into `buf` as packed
+// records (STRIDE floats each): a group of NP threads per pair, thread q
+// of the group copying field q with one 4-byte cp.async; the group's
+// thread 0 records the gaussian in `gids` (when given). Commits one group.
+template <int CH, int BATCH>
+__device__ __forceinline__ void stage_batch(float* buf, int* gids,
+                                            const int* __restrict__ gauss_idx, int first,
+                                            int n, const float* mean2d, const float* conic,
+                                            const float* opacity, const float* colors) {
+  using P = Pairs<CH>;
+  constexpr int STEP = BLOCK / P::NP;  // pairs per pass of the CTA
+  constexpr int ITER = BATCH / STEP;
+  static_assert(ITER * STEP == BATCH, "a batch is whole passes of the CTA");
+  const int t = threadIdx.x, q = t % P::NP, k0 = t / P::NP;
+  int gid[ITER];
+#pragma unroll
+  for (int i = 0; i < ITER; ++i) {
+    const int k = k0 + i * STEP;
+    gid[i] = k < n ? __ldg(gauss_idx + first + k) : -1;
+  }
+  const float* base = q < 2 ? mean2d + q : q < 5 ? conic + (q - 2) : q == 5 ? opacity
+                                                                            : colors + (q - 6);
+  const int stride = q < 2 ? 2 : q < 5 ? 3 : q == 5 ? 1 : CH;
+  const int pos = q < 6 ? q : q + 2;
+#pragma unroll
+  for (int i = 0; i < ITER; ++i) {
+    const int k = k0 + i * STEP;
+    if (gid[i] < 0) continue;
+    if (q < P::NV) cp_async4(buf + k * P::STRIDE + pos, base + (size_t)gid[i] * stride);
+    if (gids != nullptr && q == 0) gids[k] = gid[i];
+  }
+  cp_async_commit();
+}
+
 // Lane q of the warp ends with the warp's sum of v[q] (for NP = 16, lanes q
 // and q + 16 both do): each halving step keeps the half of v that bit H of
 // the lane selects and adds the partner lane's copy of it.
@@ -211,10 +245,21 @@ __device__ __forceinline__ void halve(float (&v)[NP], int lane) {
   if constexpr (H > 1) halve<H / 2, NP>(v, lane);
 }
 
-template <int NP>
-__device__ __forceinline__ float reduce_scatter(float (&v)[NP], int lane) {
+// The warp's sums of NP values, one per lane: lane q ends with the sum over
+// the warp of value(q) (for NP = 16, lanes q and q + 16 both do). The first
+// halving step computes the values as it sends or keeps them.
+template <int NP, typename Value>
+__device__ __forceinline__ float reduce_scatter(const Value& value, int lane) {
   static_assert(NP == 16 || NP == 32, "one value per lane or half-lane");
-  halve<NP / 2, NP>(v, lane);
+  constexpr int H = NP / 2;
+  const bool upper = (lane & H) != 0;
+  float v[H];
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float lo = value(i), hi = value(i + H);
+    v[i] = (upper ? hi : lo) + __shfl_xor_sync(FULL, upper ? lo : hi, H);
+  }
+  halve<H / 2, H>(v, lane);
   if constexpr (NP == 16) return v[0] + __shfl_xor_sync(FULL, v[0], 16);
   return v[0];
 }
@@ -385,10 +430,12 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
   const auto batch_lo = [&](int b) { return max(n_hi - (b + 1) * BWD_BATCH, 0); };
   const auto batch_n = [&](int b) { return n_hi - b * BWD_BATCH - batch_lo(b); };
 
-  Stager<CH, BWD_BATCH> st(t, mean2d, conic, opacity, colors);
-  st.load(gauss_idx, c.start + batch_lo(0), batch_n(0));
-  st.issue(s_pairs, s_gid[0]);
-  if (nb > 1) st.load(gauss_idx, c.start + batch_lo(1), batch_n(1));
+  const auto stage = [&](int b) {
+    stage_batch<CH, BWD_BATCH>(s_pairs + (b % 3) * STAGE, s_gid[b % 3], gauss_idx,
+                               c.start + batch_lo(b), batch_n(b), mean2d, conic, opacity,
+                               colors);
+  };
+  stage(0);
   cp_async_wait<1>();  // the g_img tile; batch 0 may still be in flight
   __syncthreads();
   float gC[CH];
@@ -419,10 +466,7 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
     // Batch b has landed; every thread has walked batch b - 1 and flushed
     // batch b - 2, whose buffers the next batch and this one's sums reuse.
     __syncthreads();
-    if (b + 1 < nb) {
-      st.issue(s_pairs + ((b + 1) % 3) * STAGE, s_gid[(b + 1) % 3]);
-      if (b + 2 < nb) st.load(gauss_idx, c.start + batch_lo(b + 2), batch_n(b + 2));
-    }
+    if (b + 1 < nb) stage(b + 1);
     if (b > 0) flush(b - 1);
 
     const float* buf = s_pairs + (b % 3) * STAGE;
@@ -430,22 +474,21 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
     const int lo = batch_lo(b);
     for (int k = batch_n(b) - 1; k >= 0; --k) {
       const float* pk = buf + k * P::STRIDE;
-      float dx = 0.0f, dy = 0.0f, A = 0.0f, B = 0.0f, C = 0.0f;
+      const float4 g0 = *reinterpret_cast<const float4*>(pk);
+      const float2 g1 = *reinterpret_cast<const float2*>(pk + 4);
+      const float dx = pxf - g0.x, dy = pyf - g0.y;
+      bool use = false;
       Alpha a;
-      a.use = false;
       if (lo + k < my_last) {
-        const float4 g0 = *reinterpret_cast<const float4*>(pk);
-        const float2 g1 = *reinterpret_cast<const float2*>(pk + 4);
-        dx = pxf - g0.x, dy = pyf - g0.y, A = g0.z, B = g0.w, C = g1.x;
-        a = pair_alpha(dx, dy, A, B, C, g1.y);
+        a = pair_alpha(dx, dy, g0.z, g0.w, g1.x, g1.y);
+        use = a.use;
       }
-      if (__ballot_sync(FULL, a.use) == 0u) continue;
-      float v[NP];
-#pragma unroll
-      for (int q = 0; q < NP; ++q) v[q] = 0.0f;
-      if (a.use) {
-        const float one_m = 1.0f - a.alpha;
-        const float t_exc = T / one_m;
+      if (__ballot_sync(FULL, use) == 0u) continue;
+      // A live lane's factors of its gradient values; 0 on the other lanes.
+      float fd = 0.0f, fo = 0.0f, fw = 0.0f, ex = 0.0f, ey = 0.0f;
+      if (use) {
+        const float inv = 1.0f / (1.0f - a.alpha);
+        const float t_exc = T * inv;
         float cg = 0.0f;
 #pragma unroll
         for (int j = 0; j < P::CH4; ++j) {
@@ -456,23 +499,33 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
           if (4 * j + 3 < CH) cg += col.w * gC[4 * j + 3];
         }
         const float w = a.alpha * t_exc;
-        const float dalpha = t_exc * cg - S / one_m;
+        const float dalpha = t_exc * cg - S * inv;
         S += w * cg;
         T = t_exc;
+        // d/d_power, zero past the 0.99 clamp; d/d_opacity = dalpha *
+        // exp(power) = dpower / op, without the division (and so without
+        // the reference's op = 0 guard).
         const bool clamped = a.alpha_pre > ALPHA_MAX;
-        const float dpower = clamped ? 0.0f : dalpha * a.alpha_pre;
-        v[0] = dpower * (A * dx + B * dy);
-        v[1] = dpower * (C * dy + B * dx);
-        v[2] = dpower * (-0.5f * dx * dx);
-        v[3] = dpower * (-dx * dy);
-        v[4] = dpower * (-0.5f * dy * dy);
-        // d/d_opacity = dalpha * exp(power) = dpower / op, without the
-        // division (and so without the reference's op = 0 guard).
-        v[5] = clamped ? 0.0f : dalpha * a.expo;
-#pragma unroll
-        for (int ch = 0; ch < CH; ++ch) v[6 + ch] = w * gC[ch];
+        fd = clamped ? 0.0f : dalpha * a.alpha_pre;
+        fo = clamped ? 0.0f : dalpha * a.expo;
+        fw = w;
+        ex = dx, ey = dy;
       }
-      const float sum = reduce_scatter<NP>(v, lane);
+      const float A = g0.z, B = g0.w, C = g1.x;
+      // Gradient value q of this lane: dmx, dmy, dA, dB, dC, dop, dcol[CH],
+      // then zeros to NP. Evaluated as the reduce-scatter's first step
+      // needs them, so that the NP values are never all live at once.
+      const auto value = [&](int q) {
+        return q == 0   ? fd * (A * ex + B * ey)
+               : q == 1 ? fd * (C * ey + B * ex)
+               : q == 2 ? fd * (-0.5f * ex * ex)
+               : q == 3 ? fd * (-ex * ey)
+               : q == 4 ? fd * (-0.5f * ey * ey)
+               : q == 5 ? fo
+               : q < NV ? fw * gC[q < NV ? q - 6 : 0]
+                        : 0.0f;
+      };
+      const float sum = reduce_scatter<NP>(value, lane);
       if (lane < NV && sum != 0.0f) atomicAdd(acc + k * NP + lane, sum);
     }
   }
