@@ -10,61 +10,74 @@
 // *before* the pair whose T * (1 - alpha) would fall below 1e-4 (that pair
 // is not composited). A tile blends at most `cap` pairs.
 //
-// Design. One CTA of 256 threads per (tile, view), one thread per pixel;
-// each thread walks its pixel's pairs serially, so the 1e-4 stop holds
-// literally and none of the TPU kernel's triangular-matmul cumsums or
-// field-major packing carries over. The forward saves the Inria form of
-// state for the backward: final T and, per pixel, the count of pairs up to
-// and including its last contributor.
+// One CTA of 256 threads per (tile, view), one thread per pixel; each
+// thread walks its pixel's pairs serially, so the 1e-4 stop holds
+// literally. The forward saves the Inria form of state for the backward:
+// final T and, per pixel, the count of pairs up to and including its last
+// contributor. The power and alpha of a (pixel, pair) come from one
+// function with rounded intrinsics (no FMA contraction), so both kernels
+// make the same skip decisions as each other, bit for bit.
 //
-// Staging (both kernels). The CTA stages batches of pairs in shared memory,
-// gathered through gauss_idx. A pair's 6 + CH fields are loaded by a group
-// of NP lanes (NP = 32 for CH = 19, 16 for CH = 3), lane q taking field q
-// with one 4-byte cp.async, into a packed record: {mx, my, A, B} as a
-// float4, {C, op} as a float2, the colours from float 8 on as float4s.
-// The gaussian indices of the batch after next are loaded into registers
-// while a batch is walked, and the next batch's cp.asyncs are in flight, so
-// a batch costs one barrier. The forward stages 64 pairs at a time (a tile
-// averages ~59 on the main path) in two buffers and leaves once every pixel
-// is done (__syncthreads_count); its image tile is composed in shared
-// memory and written with 16-byte stores, a tile row (16 * CH floats,
-// contiguous) at a time. T and `last` are written per pixel, coalesced.
+// Staging. A batch of pairs is gathered through gauss_idx into shared
+// memory as packed records, {mx, my, A, B} and {C, op, box x, box y} as
+// float4s, then the colours in two blocks (below). A group of NP lanes
+// loads a pair (NP = 32 for CH = 19, 16 for CH = 3), lane q copying field q
+// with one 4-byte cp.async, so the next batch is in flight while one is
+// walked, and a batch costs one barrier. Nothing of the staging is held in
+// registers across the walk: registers decide the CTAs an SM holds, and
+// both kernels wait on latency.
 //
-// The backward walks each pixel's pairs back to front from its last
-// contributor, recovering the transmittance before each pair as
-// T / (1 - alpha). The suffix S is seeded with T_final * gT, so the
-// gradient through the returned transmittance is included. The power
-// gradient is zeroed where the pre-clamp alpha exceeds 0.99, as the
-// reference (and JAX's AD of jnp.minimum) does. The tile's g_img comes in
-// through shared memory (16-byte cp.async, then each thread reads its CH
-// values at an odd word stride: no bank conflicts). Per (warp, pair) with a
-// live lane, the 6 + CH gradient values, padded to NP, are summed over the
-// warp by a reduce-scatter: five (four, and one add, for NP = 16) halving
-// steps of __shfl_xor_sync leave lane q with the warp's sum of value q,
-// 31 shuffles (16 for CH = 3) where 25 butterflies took 125 (45). Lane q
-// adds it into s_acc[pair][q] with a shared-memory atomicAdd; after the
-// batch one thread per nonzero (pair, value) adds it to the gaussian's
-// gradient with a global atomicAdd. The staging ring has three buffers and
-// s_acc two, so that batch b - 1's sums are flushed while batch b is
-// walked. The sum order changes from run to run: results agree with the
-// plain version to float rounding, not bit for bit.
+// Forward. 64-pair batches (a tile averages ~59 on the main path) in two
+// buffers; the CTA leaves once every pixel is done (__syncthreads_count).
+// Before a batch is walked, each record gets the half-widths of the box
+// outside which its alpha is below 1/255 (pair_extent, with margins), and
+// a pixel outside skips the pair without computing its alpha. The image
+// tile is composed in shared memory and written a row (16 * CH contiguous
+// floats) at a time in 16-byte stores; T and `last` go per pixel,
+// coalesced.
+//
+// Backward. Each pixel walks back to front from its last contributor,
+// recovering the transmittance before each pair as T / (1 - alpha). The
+// suffix S is seeded with T_final * gT, so the gradient through the
+// returned transmittance is included. The power gradient is zeroed where
+// the pre-clamp alpha exceeds 0.99, as the reference (and JAX's AD of
+// jnp.minimum) does. The tile's g_img comes in through shared memory
+// (16-byte cp.async; each thread reads its CH values at an odd word
+// stride, free of bank conflicts). For each (warp, pair) with a live lane,
+// the 6 + CH gradient values, padded to NP slots, are summed over the warp
+// by a reduce-scatter: halving steps of __shfl_xor_sync leave lane q with
+// the warp's sum of slot q, 31 shuffles (16 for CH = 3) where a butterfly
+// per value took 125 (45). The first step builds the values as it sends
+// or keeps them, without selects: the geometry values pair with zero
+// slots, and colour slots j and CB + j pair channels whose g_img factors
+// each half-warp holds in send / keep order (gS, gK), reading the pair's
+// colour blocks in the same order. Lane q adds its sum into shared memory
+// (atomicAdd); after the batch, one thread per nonzero (pair, slot) adds it
+// to the gaussian's gradient with a global atomicAdd. Three staging
+// buffers and two sum buffers let batch b - 1's sums be flushed while
+// batch b is walked. The sum order changes from run to run: results agree
+// with the plain version to float rounding, not bit for bit.
 //
 // What bounds it on an H100: every (pixel, pair) a kernel evaluates costs
 // the alpha test, 17 fp32 operations with one exp; a live (composited)
 // pair adds 4 + 2*CH in the forward, and 28 + 3*CH in the backward plus
-// 6 + CH adds to sum its gradients over the tile. Most evaluated pairs
-// fail the test. Per pair a CTA gathers (6 + CH) * 4 bytes plus a 4-byte
-// index; the image, T and `last` are written (read back, with the
-// gradients, in the backward) once per pixel. chip_smoke.py counts both
-// from a run's inputs: bytes bound both kernels. Neither kernel reaches
-// that bound: the forward waits on each CTA's two dependent gathers
-// (indices, then fields) and on its serial walk; the backward's time is
-// the per-(warp, pair) work of live warps, the reduce-scatter's shuffles
-// first (PERF.md has the times of each design step).
+// 6 + CH adds to sum its gradients over the tile. Per pair a CTA gathers
+// (6 + CH) * 4 bytes plus a 4-byte index; the image, T and `last` are
+// written (read back, with the gradients, in the backward) once per
+// pixel. chip_smoke.py counts both from a run's inputs: bytes bound both
+// kernels. Neither reaches that bound. The backward's time goes to the
+// (warp, pair) steps with a live lane, ~250 instructions each of which the
+// reduce-scatter takes half; the forward's to the alpha tests of a tile's
+// pairs and each CTA's two dependent gathers (indices, then fields).
 //
-// The power and alpha of a (pixel, pair) are computed by one function with
-// rounded intrinsics (no FMA contraction), so the forward and the backward
-// make the same skip decisions bit for bit.
+// What each step bought, at chip_smoke.py phase 3's shapes on an NVIDIA
+// H100 80GB HBM3 at 700 W (gsattack_torch/scripts/blend_ab.py; the steps
+// are commits; PERF.md has every run). Backward, from 1.881 ms: the
+// reduce-scatter 1.028; shared atomics 1.068; the cp.async ring 1.357 (95
+// registers, 2 CTAs an SM); g_img through shared memory 1.352; nothing
+// held across the walk, 64 registers and 4 CTAs 0.957. Forward, from
+// 0.432 ms: cp.async staging and packed records 0.478 (64 registers, 4
+// CTAs); the image through shared memory 0.323; the alpha box 0.300.
 
 #include <cuda_runtime.h>
 
@@ -103,16 +116,39 @@ __device__ __forceinline__ Alpha pair_alpha(float dx, float dy, float A, float B
   return r;
 }
 
-// The staged record of one pair: {mx, my, A, B}, {C, op, -, -}, then the
-// colours, padded to a multiple of 4.
+// The staged record of one pair: {mx, my, A, B}, {C, op, box x, box y},
+// then the colours in two blocks of CB channels, each padded to CBP floats:
+// channels [0, CB) and [CB, 2 CB), the latter zero past CH. The backward's
+// reduce-scatter pairs channel j with channel CB + j in its first step.
 template <int CH>
 struct Pairs {
   static constexpr int NV = 6 + CH;                  // dmx, dmy, dA, dB, dC, dop, dcol[CH]
   static constexpr int NP = NV <= 16 ? 16 : 32;      // lanes per pair; padded value count
-  static constexpr int CH4 = (CH + 3) / 4;           // float4s of colour
-  static constexpr int STRIDE = 8 + 4 * CH4;         // floats per staged pair
+  static constexpr int H1 = NP / 2;                  // the reduce-scatter's first step
+  static constexpr int CB = H1 - 6;                  // colour channels per block
+  static constexpr int CBP = (CB + 3) / 4 * 4;       // floats per colour block
+  static constexpr int STRIDE = 8 + 2 * CBP;         // floats per staged pair
   static_assert(NV <= 32, "a warp sums at most 32 values per pair");
+  static_assert(CB <= CH && 2 * CB >= CH && CB % 2 == 0, "two even blocks hold the colours");
+  __device__ static constexpr int col_pos(int ch) {
+    return ch < CB ? 8 + ch : 8 + CBP + (ch - CB);
+  }
 };
+
+// f(j, x) for the CB floats of a colour block at p (16-byte aligned), read
+// as float4s and a float2.
+template <int CB, typename F>
+__device__ __forceinline__ void for_block(const float* p, const F& f) {
+#pragma unroll
+  for (int j = 0; j + 4 <= CB; j += 4) {
+    const float4 c = *reinterpret_cast<const float4*>(p + j);
+    f(j, c.x), f(j + 1, c.y), f(j + 2, c.z), f(j + 3, c.w);
+  }
+  if constexpr (CB % 4 == 2) {
+    const float2 c = *reinterpret_cast<const float2*>(p + CB - 2);
+    f(CB - 2, c.x), f(CB - 1, c.y);
+  }
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -139,62 +175,31 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// One thread's share of staging a batch: the pair slots t / NP + i * (BLOCK
-// / NP), field q = t % NP of each. `load` brings the slots' gaussian
-// indices into registers; `issue` starts the fields' copies into a buffer.
-template <int CH, int BATCH>
-struct Stager {
-  using P = Pairs<CH>;
-  static constexpr int STEP = BLOCK / P::NP;  // pairs staged per pass of the CTA
-  static constexpr int ITER = BATCH / STEP;
-  static_assert(ITER * STEP == BATCH, "a batch is whole passes of the CTA");
+// Half-widths (x, y) of a box around the pair's mean outside which its
+// alpha is below 1/255 (power <= -ln(255 op)): sqrt(2 ln(255 op) C / det)
+// and sqrt(2 ln(255 op) A / det), widened by 5% in power and 0.5 px, so
+// that no pixel pair_alpha would use lies outside. -1 for a pair that is
+// never used (op < 1/255); +inf (no box) for a conic that is not positive
+// definite or whose condition number passes ~1e4, where rounding in the
+// power could outgrow the margin.
+__device__ __forceinline__ float2 pair_extent(float A, float B, float C, float op) {
+  if (!(op >= ALPHA_MIN)) return make_float2(-1.0f, -1.0f);
+  const float det = A * C - B * B, tr = A + C;
+  const float inf = __int_as_float(0x7f800000);
+  if (!(A > 0.0f && C > 0.0f && det * 1e4f > tr * tr)) return make_float2(inf, inf);
+  const float L = 2.1f * fmaxf(logf(op * 255.0f), 0.0f);
+  return make_float2(sqrtf(L * C / det) + 0.5f, sqrtf(L * A / det) + 0.5f);
+}
 
-  int gid[ITER];
-  int k0;             // this thread's first pair slot
-  const float* base;  // its field's array, offset to the field
-  int stride;         // floats per gaussian in that array
-  int pos;            // its field's place in the staged record
-  bool on;            // q < NV: the thread has a field to load
-  bool first;         // q == 0: the thread records the pair's gaussian
-
-  __device__ __forceinline__ Stager(int t, const float* mean2d, const float* conic,
-                                    const float* opacity, const float* colors) {
-    const int q = t % P::NP;
-    k0 = t / P::NP;
-    on = q < P::NV;
-    first = q == 0;
-    if (q < 2) {
-      base = mean2d + q, stride = 2, pos = q;
-    } else if (q < 5) {
-      base = conic + (q - 2), stride = 3, pos = q;
-    } else if (q == 5) {
-      base = opacity, stride = 1, pos = 5;
-    } else {
-      base = colors + (q - 6), stride = CH, pos = q + 2;
-    }
+// Batch records [0, n): their boxes into the record's floats 6 and 7.
+template <int CH>
+__device__ __forceinline__ void record_extents(float* buf, int n) {
+  for (int k = threadIdx.x; k < n; k += BLOCK) {
+    float* pk = buf + k * Pairs<CH>::STRIDE;
+    const float2 e = pair_extent(pk[2], pk[3], pk[4], pk[5]);
+    pk[6] = e.x, pk[7] = e.y;
   }
-
-  __device__ __forceinline__ void load(const int* __restrict__ gauss_idx, int first_pair,
-                                       int n) {
-#pragma unroll
-    for (int i = 0; i < ITER; ++i) {
-      const int k = k0 + i * STEP;
-      gid[i] = k < n ? __ldg(gauss_idx + first_pair + k) : -1;
-    }
-  }
-
-  __device__ __forceinline__ void issue(float* buf, int* gids) {
-#pragma unroll
-    for (int i = 0; i < ITER; ++i) {
-      const int k = k0 + i * STEP;
-      if (gid[i] >= 0) {
-        if (on) cp_async4(buf + k * P::STRIDE + pos, base + (size_t)gid[i] * stride);
-        if (gids != nullptr && first) gids[k] = gid[i];
-      }
-    }
-    cp_async_commit();
-  }
-};
+}
 
 // Stage pairs [first, first + n) of gauss_idx into `buf` as packed
 // records (STRIDE floats each): a group of NP threads per pair, thread q
@@ -219,7 +224,7 @@ __device__ __forceinline__ void stage_batch(float* buf, int* gids,
   const float* base = q < 2 ? mean2d + q : q < 5 ? conic + (q - 2) : q == 5 ? opacity
                                                                             : colors + (q - 6);
   const int stride = q < 2 ? 2 : q < 5 ? 3 : q == 5 ? 1 : CH;
-  const int pos = q < 6 ? q : q + 2;
+  const int pos = q < 6 ? q : P::col_pos(q - 6);
 #pragma unroll
   for (int i = 0; i < ITER; ++i) {
     const int k = k0 + i * STEP;
@@ -243,25 +248,6 @@ __device__ __forceinline__ void halve(float (&v)[NP], int lane) {
     v[i] = keep + __shfl_xor_sync(FULL, send, H);
   }
   if constexpr (H > 1) halve<H / 2, NP>(v, lane);
-}
-
-// The warp's sums of NP values, one per lane: lane q ends with the sum over
-// the warp of value(q) (for NP = 16, lanes q and q + 16 both do). The first
-// halving step computes the values as it sends or keeps them.
-template <int NP, typename Value>
-__device__ __forceinline__ float reduce_scatter(const Value& value, int lane) {
-  static_assert(NP == 16 || NP == 32, "one value per lane or half-lane");
-  constexpr int H = NP / 2;
-  const bool upper = (lane & H) != 0;
-  float v[H];
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const float lo = value(i), hi = value(i + H);
-    v[i] = (upper ? hi : lo) + __shfl_xor_sync(FULL, upper ? lo : hi, H);
-  }
-  halve<H / 2, H>(v, lane);
-  if constexpr (NP == 16) return v[0] + __shfl_xor_sync(FULL, v[0], 16);
-  return v[0];
 }
 
 struct TileCtx {
@@ -315,12 +301,12 @@ blend_fwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
   const int nb = (c.count + FWD_BATCH - 1) / FWD_BATCH;
   const auto batch_n = [&](int b) { return min(FWD_BATCH, c.count - b * FWD_BATCH); };
 
-  Stager<CH, FWD_BATCH> st(t, mean2d, conic, opacity, colors);
-  if (nb > 0) {
-    st.load(gauss_idx, c.start, batch_n(0));
-    st.issue(smem, nullptr);
-  }
-  if (nb > 1) st.load(gauss_idx, c.start + FWD_BATCH, batch_n(1));
+  const auto stage = [&](int b) {
+    stage_batch<CH, FWD_BATCH>(smem + (b & 1) * STAGE, nullptr, gauss_idx,
+                               c.start + b * FWD_BATCH, batch_n(b), mean2d, conic, opacity,
+                               colors);
+  };
+  if (nb > 0) stage(0);
 
   float acc[CH];
 #pragma unroll
@@ -333,17 +319,18 @@ blend_fwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
     cp_async_wait<0>();
     // Also the barrier that frees the buffer the next batch goes into.
     if (__syncthreads_count(done) == BLOCK) break;
-    if (b + 1 < nb) {
-      st.issue(smem + ((b + 1) & 1) * STAGE, nullptr);
-      if (b + 2 < nb) st.load(gauss_idx, c.start + (b + 2) * FWD_BATCH, batch_n(b + 2));
-    }
-    const float* buf = smem + (b & 1) * STAGE;
+    if (b + 1 < nb) stage(b + 1);
+    float* buf = smem + (b & 1) * STAGE;
     const int b0 = b * FWD_BATCH, n = batch_n(b);
+    record_extents<CH>(buf, n);
+    __syncthreads();
     for (int k = 0; k < n && !done; ++k) {
       const float* pk = buf + k * P::STRIDE;
       const float4 g0 = *reinterpret_cast<const float4*>(pk);
-      const float2 g1 = *reinterpret_cast<const float2*>(pk + 4);
-      const Alpha a = pair_alpha(pxf - g0.x, pyf - g0.y, g0.z, g0.w, g1.x, g1.y);
+      const float4 g1 = *reinterpret_cast<const float4*>(pk + 4);
+      const float dx = pxf - g0.x, dy = pyf - g0.y;
+      if (fabsf(dx) > g1.z || fabsf(dy) > g1.w) continue;
+      const Alpha a = pair_alpha(dx, dy, g0.z, g0.w, g1.x, g1.y);
       if (!a.use) continue;
       const float test = T * (1.0f - a.alpha);
       if (test < T_EPS) {
@@ -351,14 +338,10 @@ blend_fwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
         break;
       }
       const float w = a.alpha * T;
-#pragma unroll
-      for (int j = 0; j < P::CH4; ++j) {
-        const float4 col = *reinterpret_cast<const float4*>(pk + 8 + 4 * j);
-        acc[4 * j] += w * col.x;
-        if (4 * j + 1 < CH) acc[4 * j + 1] += w * col.y;
-        if (4 * j + 2 < CH) acc[4 * j + 2] += w * col.z;
-        if (4 * j + 3 < CH) acc[4 * j + 3] += w * col.w;
-      }
+      for_block<P::CB>(pk + 8, [&](int j, float col) { acc[j] += w * col; });
+      for_block<P::CB>(pk + 8 + P::CBP, [&](int j, float col) {
+        if (P::CB + j < CH) acc[P::CB + j] += w * col;
+      });
       T = test;
       last = b0 + k + 1;
     }
@@ -410,6 +393,7 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
   }
   cp_async_commit();
   for (int i = t; i < 2 * BWD_BATCH * NP; i += BLOCK) (&s_acc[0][0])[i] = 0.0f;
+  for (int i = t; i < 3 * STAGE; i += BLOCK) s_pairs[i] = 0.0f;  // the colour pads
 
   const int my_last = last[c.pix];
   float T = out_T[c.pix];
@@ -438,25 +422,37 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
   stage(0);
   cp_async_wait<1>();  // the g_img tile; batch 0 may still be in flight
   __syncthreads();
-  float gC[CH];
+  // This pixel's g_img as the reduce-scatter's first step sends (gS) and
+  // keeps (gK) it: the lower half-warp keeps channel j and sends channel
+  // CB + j, the upper half the other way round.
+  constexpr int H1 = P::H1, CB = P::CB;
+  const bool upper1 = (lane & H1) != 0;
+  float gK[CB], gS[CB];
 #pragma unroll
-  for (int ch = 0; ch < CH; ++ch) gC[ch] = s_img[t * CH + ch];
+  for (int j = 0; j < CB; ++j) {
+    const float ga = s_img[t * CH + j], gb = CB + j < CH ? s_img[t * CH + CB + j] : 0.0f;
+    gK[j] = upper1 ? gb : ga;
+    gS[j] = upper1 ? ga : gb;
+  }
 
   // Batch b's sums, from s_acc to the per-gaussian gradients.
   const auto flush = [&](int b) {
     float* acc = s_acc[b & 1];
     const int* gids = s_gid[b % 3];
     const int n = batch_n(b);
-    for (int i = t; i < n * NV; i += BLOCK) {
-      const int k = i / NV, q = i - k * NV;
-      const float sum = acc[k * NP + q];
+    // Slot q of a pair: value q below 6, channel q - 6 below H1, nothing
+    // in [H1, H1 + 6), channel q - H1 - 6 + CB above.
+    for (int i = t; i < n * NP; i += BLOCK) {
+      const int k = i / NP, q = i % NP;
+      const float sum = acc[i];
       if (sum == 0.0f) continue;
-      acc[k * NP + q] = 0.0f;
+      acc[i] = 0.0f;
       const size_t g = (size_t)gids[k];
+      const int ch = q < H1 ? q - 6 : q - H1 - 6 + CB;
       float* dst = q < 2   ? d_mean2d + 2 * g + q
                    : q < 5 ? d_conic + 3 * g + (q - 2)
                    : q == 5 ? d_opacity + g
-                            : d_colors + g * CH + (q - 6);
+                            : d_colors + g * CH + ch;
       atomicAdd(dst, sum);
     }
   };
@@ -485,19 +481,15 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
       }
       if (__ballot_sync(FULL, use) == 0u) continue;
       // A live lane's factors of its gradient values; 0 on the other lanes.
-      float fd = 0.0f, fo = 0.0f, fw = 0.0f, ex = 0.0f, ey = 0.0f;
+      float px_ = 0.0f, py_ = 0.0f, fo = 0.0f, fw = 0.0f;
       if (use) {
-        const float inv = 1.0f / (1.0f - a.alpha);
+        const float inv = __fdividef(1.0f, 1.0f - a.alpha);
         const float t_exc = T * inv;
+        // Colour . g_img, each half-warp reading its blocks in the order
+        // of its coefficients.
         float cg = 0.0f;
-#pragma unroll
-        for (int j = 0; j < P::CH4; ++j) {
-          const float4 col = *reinterpret_cast<const float4*>(pk + 8 + 4 * j);
-          cg += col.x * gC[4 * j];
-          if (4 * j + 1 < CH) cg += col.y * gC[4 * j + 1];
-          if (4 * j + 2 < CH) cg += col.z * gC[4 * j + 2];
-          if (4 * j + 3 < CH) cg += col.w * gC[4 * j + 3];
-        }
+        for_block<CB>(pk + 8 + (upper1 ? P::CBP : 0), [&](int j, float col) { cg += col * gK[j]; });
+        for_block<CB>(pk + 8 + (upper1 ? 0 : P::CBP), [&](int j, float col) { cg += col * gS[j]; });
         const float w = a.alpha * t_exc;
         const float dalpha = t_exc * cg - S * inv;
         S += w * cg;
@@ -506,27 +498,33 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
         // exp(power) = dpower / op, without the division (and so without
         // the reference's op = 0 guard).
         const bool clamped = a.alpha_pre > ALPHA_MAX;
-        fd = clamped ? 0.0f : dalpha * a.alpha_pre;
+        const float fd = clamped ? 0.0f : dalpha * a.alpha_pre;
         fo = clamped ? 0.0f : dalpha * a.expo;
         fw = w;
-        ex = dx, ey = dy;
+        px_ = fd * dx, py_ = fd * dy;
       }
       const float A = g0.z, B = g0.w, C = g1.x;
-      // Gradient value q of this lane: dmx, dmy, dA, dB, dC, dop, dcol[CH],
-      // then zeros to NP. Evaluated as the reduce-scatter's first step
-      // needs them, so that the NP values are never all live at once.
-      const auto value = [&](int q) {
-        return q == 0   ? fd * (A * ex + B * ey)
-               : q == 1 ? fd * (C * ey + B * ex)
-               : q == 2 ? fd * (-0.5f * ex * ex)
-               : q == 3 ? fd * (-ex * ey)
-               : q == 4 ? fd * (-0.5f * ey * ey)
-               : q == 5 ? fo
-               : q < NV ? fw * gC[q < NV ? q - 6 : 0]
-                        : 0.0f;
-      };
-      const float sum = reduce_scatter<NP>(value, lane);
-      if (lane < NV && sum != 0.0f) atomicAdd(acc + k * NP + lane, sum);
+      // The reduce-scatter's first step builds the values as it sends or
+      // keeps them: the geometry values (slots 0-5) pair with zeros, the
+      // colour slots 6 + j and H1 + 6 + j hold channels j and CB + j.
+      float v[H1];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        const float g = i == 0   ? A * px_ + B * py_
+                        : i == 1 ? C * py_ + B * px_
+                        : i == 2 ? -0.5f * px_ * dx
+                        : i == 3 ? -px_ * dy
+                        : i == 4 ? -0.5f * py_ * dy
+                                 : fo;
+        v[i] = (upper1 ? 0.0f : g) + __shfl_xor_sync(FULL, upper1 ? g : 0.0f, H1);
+      }
+#pragma unroll
+      for (int i = 6; i < H1; ++i)
+        v[i] = fw * gK[i - 6] + __shfl_xor_sync(FULL, fw * gS[i - 6], H1);
+      halve<H1 / 2, H1>(v, lane);
+      float sum = v[0];
+      if constexpr (NP == 16) sum += __shfl_xor_sync(FULL, sum, 16);
+      if (lane < NP && sum != 0.0f) atomicAdd(acc + k * NP + lane, sum);
     }
   }
   __syncthreads();

@@ -40,7 +40,8 @@ REGS_PER_SM, SMEM_PER_SM, THREADS = 65536, 233472, 256
 
 def ptxas_report(text: str) -> dict:
     """Per blend kernel instantiation (`fwd<19>`, ...): registers, static
-    shared memory, spill bytes, and the CTAs of 256 threads an SM can hold
+    shared memory, stack frame and spill bytes, and the CTAs of 256 threads
+    an SM can hold
     by registers (allocated per warp in units of 256) and by shared memory
     (with the 1 KB the runtime reserves per CTA)."""
     out, name = {}, None
@@ -52,9 +53,11 @@ def ptxas_report(text: str) -> dict:
             continue
         if name is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
         if m:
-            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            out[name]["stack_bytes"] = int(m.group(1))
+            out[name]["spill_bytes"] = int(m.group(2)) + int(m.group(3))
         m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
         if m:
             regs, smem = int(m.group(1)), int(m.group(2))
