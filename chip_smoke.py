@@ -270,9 +270,9 @@ def pair_work(idx, blend_in, tiles, cap: int, last, chunk: int = 32) -> dict:
 
 def bwd_shuffles(ch: int) -> tuple[int, int]:
     """Warp shuffles per (warp, pair) step with a live lane, summing the
-    6 + CH gradient values over the warp: the first design's 5-step
-    butterfly per value, and the reduce-scatter over the values padded to
-    32 (31 shuffles) or 16 (15, then one to add the two half-warps)."""
+    6 + CH gradient values over the warp: by a 5-step butterfly per value,
+    and by the kernel's reduce-scatter over the values padded to 32 (31
+    shuffles) or 16 (15, then one to add the two half-warps)."""
     nv = 6 + ch
     return 5 * nv, 31 if nv > 16 else 16
 

@@ -75,9 +75,12 @@
 // are commits; PERF.md has every run). Backward, from 1.881 ms: the
 // reduce-scatter 1.028; shared atomics 1.068; the cp.async ring 1.357 (95
 // registers, 2 CTAs an SM); g_img through shared memory 1.352; nothing
-// held across the walk, 64 registers and 4 CTAs 0.957. Forward, from
-// 0.432 ms: cp.async staging and packed records 0.478 (64 registers, 4
-// CTAs); the image through shared memory 0.323; the alpha box 0.300.
+// held across the walk, 64 registers and 4 CTAs 0.957 (its own call:
+// parent 1.898); one reciprocal 0.886 and the select-free first step
+// 0.864 (their call: parent 1.885). Forward, from 0.432 ms: cp.async
+// staging and packed records 0.478 (64 registers, 4 CTAs); the image
+// through shared memory 0.323; the alpha box 0.306, and 0.324 with the
+// two colour blocks the backward needs.
 
 #include <cuda_runtime.h>
 
@@ -372,7 +375,7 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
                  float* __restrict__ d_mean2d, float* __restrict__ d_conic,
                  float* __restrict__ d_opacity, float* __restrict__ d_colors) {
   using P = Pairs<CH>;
-  constexpr int NV = P::NV, NP = P::NP;
+  constexpr int NP = P::NP;
   constexpr int STAGE = BWD_BATCH * P::STRIDE;
   __shared__ __align__(16) float s_img[BLOCK * CH];     // the tile's g_img
   __shared__ __align__(16) float s_pairs[3 * STAGE];    // ring of staged batches

@@ -29,9 +29,11 @@ def test_ptxas_report_reads_each_blend_kernel():
     assert blend_ab.ptxas_report(REPORT) == {
         # 80 registers: 2,560 a warp, 25 warps, 3 CTAs of 8 warps; shared
         # memory would allow 7.
-        "bwd<19>": {"stack_bytes": 0, "spill_bytes": 0, "registers": 80, "smem_bytes": 28932, "ctas_per_sm": 3},
+        "bwd<19>": {"stack_bytes": 0, "spill_bytes": 0, "registers": 80, "smem_bytes": 28932,
+                    "ctas_per_sm": 3},
         # 32 registers: 8 CTAs by registers and by threads; 23 by shared memory.
-        "fwd<3>": {"stack_bytes": 8, "spill_bytes": 28, "registers": 32, "smem_bytes": 9216, "ctas_per_sm": 8},
+        "fwd<3>": {"stack_bytes": 8, "spill_bytes": 28, "registers": 32, "smem_bytes": 9216,
+                   "ctas_per_sm": 8},
     }
 
 
