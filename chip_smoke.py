@@ -2,7 +2,8 @@
 """Smoke run of `gsattack_torch` on one CUDA card: builds the kernels from
 `gsattack_torch/csrc` (the tile blend and the row gather), holds them
 against their plain PyTorch version, drives the DAGGER attack end to end,
-and drives the row gather's micro-bench.
+drives the row gather's micro-bench, and runs the detector zoo at full
+width, with DAGGER against each main detector.
 
     python3 chip_smoke.py
 
@@ -46,6 +47,18 @@ Phases (any failure raises and exits non-zero):
      `python -m gsattack_torch.scripts.micro_gather` (`main`, one launch
      setting, 4 timed calls) in this process, which must return 0, with
      the gather's launch count set to 0 just before and read just after.
+  6. Detectors (`models/`) at full width on phase 4's 4 views (800x800),
+     weights from seed 0: yolov8 (n, imgsz 640, 80 classes), detectron2
+     (Faster R-CNN R50-FPN, 80 classes) and detr (R50 + a 6 / 6
+     transformer, 91 classes) each give a loss and an image gradient on
+     the card (finite, nonzero; their time), and their head outputs, and
+     their loss with the card's discrete choices replayed, match the same
+     module moved to the CPU (max rel 1e-4); then
+     `run_dagger` against each, 4 PGD iterations on the colours, with the
+     blend launch counts set to 0 just before and read just after (both
+     above 0), its PGD it/s and the loss-and-step iteration's device busy
+     share; then yolov3, yolov5 (v5s) and yolov11 (v11n) each give a loss
+     and image gradient at imgsz 640, finite and nonzero.
 
 Prints the card's line and the kernels as one JSON line, then the ok
 line last.
@@ -53,6 +66,7 @@ line last.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -93,6 +107,12 @@ GATHER_WIDTHS = (16, 32, 40)
 # The plain version holds (tiles, chunk, 256) temporaries per chunk: at the
 # main path's 10k tiles it runs 64-pair chunks, with the same 2048-pair cap.
 PLAIN_CHUNK, PLAIN_MAX_CHUNKS = 64, 32
+# Phase 6: the detectors run at full width on the main path's views, each
+# by its family's defaults; card against CPU, heads and loss, relative.
+MAIN_DETECTORS = ("yolov8", "detectron2", "detr")
+OTHER_YOLOS = ("yolov3", "yolov5", "yolov11")
+DETECTOR_PGD_ITERS = 4
+GATE_DETECTOR = 1e-4
 
 
 def log(*a):
@@ -669,9 +689,36 @@ def phase_gather(device) -> dict:
     return {"widths": widths, "micro_bench_launches": launches}
 
 
-def profile_pgd(step, iters: int = 3, top: int = 12) -> dict:
-    """Device time by kernel over `iters` PGD iterations (torch.profiler),
-    and the device's busy share of the window's wall time."""
+def make_pgd_iter(scene, cams, det, pairs, bg, boxes):
+    """One of run_dagger's loss-and-step iterations as a closure: the loss
+    render, the detector's loss, the backward and the PGD step, without
+    the eval render (the loop the profile traces). Each call steps from
+    the last call's scene."""
+    import torch
+
+    from gsattack_torch.attack import render_views
+    from gsattack_torch.attack.pgd import pgd_attack_step
+
+    originals = {k: v.detach().clone() for k, v in scene.params().items()}
+    state = {"scene": scene}
+
+    def pgd_iter():
+        leaves = {k: v.detach().requires_grad_(True) for k, v in state["scene"].params().items()}
+        imgs = render_views(scene.with_params(leaves), cams, bg, pairs, MAX_CHUNKS, CHUNK)
+        loss = det.loss(imgs, 2, boxes)
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()),
+                                                     allow_unused=True)))
+        grads = {k: torch.zeros_like(leaves[k]) if g is None else g for k, g in grads.items()}
+        state["scene"] = pgd_attack_step(state["scene"], grads, originals, 0.5, 5.0)
+
+    return pgd_iter
+
+
+def profile_pgd(step, iters: int = 3, top: int = 12,
+                what: str = "loss-and-step iterations (no eval render)") -> dict:
+    """Device time by kernel over `iters` calls of `step` (by default PGD
+    iterations; torch.profiler), and the device's busy share of the
+    window's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -694,7 +741,7 @@ def profile_pgd(step, iters: int = 3, top: int = 12) -> dict:
     if busy_us == 0:
         log("  profile: the profiler saw no device time (not measured)")
         return {"busy_share": None, "top": []}
-    log(f"  profile of {iters} loss-and-step iterations (no eval render): device busy {busy_us / wall_us:.1%} of "
+    log(f"  profile of {iters} {what}: device busy {busy_us / wall_us:.1%} of "
         f"{wall_us / 1e3 / iters:.2f} ms/iteration (profiler on), "
         f"{sum(r[2] for r in rows) // iters} kernels/iteration; top kernels by device time:")
     for name, dev_us, count in rows[:top]:
@@ -759,7 +806,6 @@ def phase_main_path(scene, cams, ext, pairs, device):
     import torch
 
     from gsattack_torch.attack import AttackConfig, render_views, run_dagger
-    from gsattack_torch.attack.pgd import pgd_attack_step
     from gsattack_torch.models import ToyDetector
     from gsattack_torch.ops import blend, gather
 
@@ -811,18 +857,6 @@ def phase_main_path(scene, cams, ext, pairs, device):
     # Render rates, after a warm-up.
     bg = torch.zeros(3, device=device)
     boxes = np.tile(np.array([[200, 200, 600, 600]], np.float32), (4, 1))
-    originals = {k: v.detach().clone() for k, v in scene.params().items()}
-    state = {"scene": scene}
-
-    def pgd_iter():
-        """run_dagger's loss render, backward and step, without its eval
-        render: the loop the profile traces."""
-        leaves = {k: v.detach().requires_grad_(True) for k, v in state["scene"].params().items()}
-        imgs = render_views(scene.with_params(leaves), cams, bg, pairs, MAX_CHUNKS, CHUNK)
-        loss = det.loss(imgs, 2, boxes)
-        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-        state["scene"] = pgd_attack_step(state["scene"], grads, originals, 0.5, 5.0)
-
     def fwd_bwd(with_objects):
         def run():
             leaves = {k: v.detach().requires_grad_(True) for k, v in scene.params().items()}
@@ -845,11 +879,213 @@ def phase_main_path(scene, cams, ext, pairs, device):
         f"{rates['fwd_bwd_mpix_s_rgb']:.2f} Mpix/s RGB, "
         f"{rates['fwd_bwd_mpix_s_objects']:.2f} Mpix/s with objects")
     # After the rates: the profiler's tracing slows what runs under it.
-    profile = profile_pgd(pgd_iter)
+    profile = profile_pgd(make_pgd_iter(scene, cams, det, pairs, bg, boxes))
     stages = stage_breakdown(scene, cams, det, pairs, bg, boxes)
     return {"launches": launches, "losses": losses.tolist(), "rates": rates,
             "iterations": len(losses), "pairs_per_gaussian": pairs, "profile": profile,
             "stages_ms": stages}
+
+
+def detector_heads(name: str, det, images):
+    """The head outputs a detector's loss reads: YOLO's Detect maps, the
+    Faster R-CNN RPN's objectness and deltas per level, DETR's class
+    logits and boxes."""
+    import torch
+
+    with torch.no_grad():
+        out = det(images)
+    if name.startswith("yolo"):
+        return list(out[0])
+    if name == "detectron2":
+        return [t for level in out[1] for t in level]
+    return list(out)
+
+
+# The discrete choices inside each family's loss, by module and function:
+# YOLO's task-aligned assignment, Faster R-CNN's top-k selections (the
+# proposals per level and overall, the ROI batch), DETR's greedy match.
+CHOICES = {"yolo": ("yolo", "task_aligned_assign"), "detectron2": ("frcnn", "_top"),
+           "detr": ("detr", "greedy_match")}
+
+
+@contextlib.contextmanager
+def choices(name: str, replay=None):
+    """Within the block, the discrete choices of `name`'s loss are recorded
+    into the list it yields, or, given `replay` (an earlier block's list),
+    taken from it in call order: index outputs as recorded (moved to the
+    arguments' device), and a top-k's values read at the recorded
+    indices."""
+    import importlib
+
+    import torch
+
+    mod_name, fn_name = CHOICES["yolo" if name.startswith("yolo") else name]
+    mod = importlib.import_module(f"gsattack_torch.models.{mod_name}")
+    real = getattr(mod, fn_name)
+    log_ = []
+
+    def wrapped(*args, **kwargs):
+        dev = args[0].device
+        if replay is None:
+            out = real(*args, **kwargs)
+            log_.append(out)
+            return out
+        out = replay[len(log_)]
+        log_.append(out)
+        if fn_name == "_top":
+            idx = out[1].to(dev)
+            return torch.gather(args[0], -1, idx), idx
+        if isinstance(out, tuple):
+            return tuple(t.to(dev) for t in out)
+        return out.to(dev)
+
+    setattr(mod, fn_name, wrapped)
+    try:
+        yield log_
+    finally:
+        setattr(mod, fn_name, real)
+
+
+def choices_differing(a: list, b: list) -> int:
+    """How many entries of two recordings' index and mask outputs differ."""
+    import torch
+
+    n = 0
+    for x, y in zip(a, b):
+        xs = x if isinstance(x, tuple) else (x,)
+        ys = y if isinstance(y, tuple) else (y,)
+        for u, v in zip(xs, ys):
+            if u.dtype in (torch.bool, torch.int64, torch.int32):
+                n += int((u.cpu() != v.cpu()).sum())
+    return n
+
+
+def detector_on_card(name: str, det, imgs, boxes) -> dict:
+    """Phase 6a for one detector: loss and image gradient on the card
+    (finite, nonzero), their time, and the same module moved to the CPU on
+    the same views: the head outputs (max rel, gate `GATE_DETECTOR`), the
+    loss with the card's discrete choices replayed (rel, same gate), and,
+    reported only, the loss and the count of choices that differ when the
+    CPU makes its own (near-ties among the seeded weights' flat scores)."""
+    import copy
+
+    import torch
+
+    x = imgs.detach().clone().requires_grad_(True)
+    with choices(name) as card_choices:
+        loss = det.loss(x, 2, boxes)
+    (grad,) = torch.autograd.grad(loss, [x])
+    grad_max = float(grad.abs().max())
+    if not (math.isfinite(loss.item()) and bool(torch.isfinite(grad).all()) and grad_max > 0):
+        raise AssertionError(f"phase 6 {name}: loss {loss.item()}, gradient max {grad_max}")
+
+    def loss_and_grad():
+        xx = imgs.detach().clone().requires_grad_(True)
+        torch.autograd.grad(det.loss(xx, 2, boxes), [xx])
+
+    ms = cuda_ms(loss_and_grad, reps=3)
+    detector_profile = profile_pgd(loss_and_grad, iters=2, top=6,
+                                   what="detector loss + image gradient calls")
+    heads = detector_heads(name, det, imgs)
+    det_cpu = copy.deepcopy(det).to("cpu")
+    x_cpu = imgs.detach().cpu()
+    heads_cpu = detector_heads(name, det_cpu, x_cpu)
+    with torch.no_grad():
+        with choices(name, replay=card_choices):
+            loss_cpu = det_cpu.loss(x_cpu, 2, boxes).item()
+        with choices(name) as cpu_choices:
+            loss_free = det_cpu.loss(x_cpu, 2, boxes).item()
+    del det_cpu
+    head_err = max(max_rel(a.cpu(), b) for a, b in zip(heads, heads_cpu))
+    loss_err = abs(loss.item() - loss_cpu) / max(abs(loss_cpu), 1e-12)
+    free_err = abs(loss.item() - loss_free) / max(abs(loss_free), 1e-12)
+    flips = choices_differing(card_choices, cpu_choices)
+    n_params = sum(v.numel() for v in det.state_dict().values())
+    log(f"  {name}: {n_params} weights; loss {loss.item():.6g} (CPU with the card's choices "
+        f"{loss_cpu:.6g}, rel {loss_err:.2e}; CPU on its own {loss_free:.6g}, rel {free_err:.2e}, "
+        f"{flips} choice entries differ); heads max rel {head_err:.2e} over {len(heads)} maps; "
+        f"image gradient max |g| {grad_max:.3e}, finite; loss + backward {ms:.2f} ms on the card")
+    if head_err > GATE_DETECTOR or loss_err > GATE_DETECTOR:
+        raise AssertionError(f"phase 6 {name}: card vs CPU heads {head_err}, loss {loss_err} "
+                             f"(gate {GATE_DETECTOR})")
+    return {"loss": loss.item(), "loss_cpu": loss_cpu, "loss_rel_err": loss_err,
+            "loss_cpu_own_choices": loss_free, "choice_entries_differing": flips,
+            "heads_max_rel_err": head_err, "grad_max_abs": grad_max, "loss_bwd_ms": ms,
+            "weights": n_params, "loss_bwd_profile": detector_profile}
+
+
+def phase_detectors(scene, cams, ext, pairs, device) -> dict:
+    """Phase 6: the detector zoo at full width on the main path's scene.
+    (a) yolov8 (n, imgsz 640, 80 classes), detectron2 (R50-FPN, 80 classes)
+    and detr (R50 + 6 / 6 transformer, 91 classes), each held card against
+    CPU (`detector_on_card`); (b) `run_dagger` against each, 4 PGD
+    iterations on the colours, with the launch counts read around it, its
+    PGD it/s and the loss-and-step iteration's device busy share; (c) the
+    other YOLO families (v3, v5s, v11n): loss and backward at imgsz 640,
+    finite and nonzero."""
+    import numpy as np
+    import torch
+
+    from gsattack_torch.attack import AttackConfig, render_views, run_dagger
+    from gsattack_torch.attack.silhouette import silhouette_bbox
+    from gsattack_torch.models import load_detector
+    from gsattack_torch.ops import blend
+
+    bg = torch.zeros(3, device=device)
+    with torch.no_grad():
+        imgs = render_views(scene, cams, bg, pairs, MAX_CHUNKS, CHUNK)
+    boxes = np.stack([silhouette_bbox(im).cpu().numpy() for im in imgs]).astype(np.float32)
+    log(f"phase 6  detectors at full width on {imgs.shape[0]} views of {tuple(imgs.shape[1:])}, "
+        f"silhouette boxes {boxes.tolist()}:")
+    out = {}
+    for name in MAIN_DETECTORS:
+        det = load_detector(name, seed=0, device=device)
+        row = detector_on_card(name, det, imgs, boxes)
+        with tempfile.TemporaryDirectory() as out_dir:
+            cfg = AttackConfig(
+                epsilon=5.0, alpha=0.5, max_iters=DETECTOR_PGD_ITERS + 1, batch_size=4,
+                add_cams=4, target=2, attributes=("color",), norm="l2", eval_every=1,
+                attack_conf_thresh=0.99, pairs_per_gaussian=pairs, chunk=CHUNK,
+                max_chunks=MAX_CHUNKS, output_dir=out_dir, detector_name=name,
+            )
+            lines = []
+            blend.FWD_LAUNCHES = blend.BWD_LAUNCHES = 0
+            res = run_dagger(scene, [ext], det, cfg,
+                             log=lambda line: lines.append((time.perf_counter(), line)))
+            torch.cuda.synchronize()
+            launches = {"fwd": blend.FWD_LAUNCHES, "bwd": blend.BWD_LAUNCHES}
+        stamps = [t for t, line in lines if line.startswith("Iteration:")]
+        losses = np.asarray(res.losses)
+        if not (launches["fwd"] > 0 and launches["bwd"] > 0):
+            raise AssertionError(f"phase 6 run_dagger with {name} did not launch both blend "
+                                 f"kernels: {launches}")
+        if len(losses) != DETECTOR_PGD_ITERS or not np.isfinite(losses).all():
+            raise AssertionError(f"phase 6 run_dagger with {name}: losses {losses}")
+        row["pgd_losses"] = losses.tolist()
+        row["launches"] = launches
+        row["pgd_it_s"] = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+        log(f"  run_dagger with {name}: {len(losses)} PGD iterations, losses "
+            f"{[round(v, 6) for v in losses.tolist()]}; launches fwd {launches['fwd']}, bwd "
+            f"{launches['bwd']}; PGD {row['pgd_it_s']:.3f} it/s")
+        row["profile"] = profile_pgd(make_pgd_iter(scene, cams, det, pairs, bg, boxes), top=8)
+        out[name] = row
+        del det, res
+        torch.cuda.empty_cache()
+    for name in OTHER_YOLOS:
+        det = load_detector(name, seed=0, device=device)
+        x = imgs.detach().clone().requires_grad_(True)
+        loss = det.loss(x, 2, boxes)
+        (grad,) = torch.autograd.grad(loss, [x])
+        grad_max = float(grad.abs().max())
+        log(f"  {name} ({det.variant}, imgsz {det.imgsz}): loss {loss.item():.6g}, image gradient "
+            f"max |g| {grad_max:.3e}")
+        if not (math.isfinite(loss.item()) and bool(torch.isfinite(grad).all()) and grad_max > 0):
+            raise AssertionError(f"phase 6 {name}: loss {loss.item()}, gradient max {grad_max}")
+        out[name] = {"variant": det.variant, "loss": loss.item(), "grad_max_abs": grad_max}
+        del det
+    log("phase 6 summary " + json.dumps(
+        {k: {f: v for f, v in row.items() if not f.endswith("profile")} for k, row in out.items()}))
+    return out
 
 
 def main() -> int:
@@ -888,6 +1124,7 @@ def main() -> int:
     shapes = phase_main_shapes(scene, cams, pairs, _tiles)
     main = phase_main_path(scene, cams, ext, pairs, device)
     gathered = phase_gather(device)
+    phase_detectors(scene, cams, ext, pairs, device)
     w16 = gathered["widths"][16]
 
     source = "gsattack_torch/csrc/blend.cu"

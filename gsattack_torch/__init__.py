@@ -12,9 +12,12 @@ Layout mirrors `gsattack/`:
             PyTorch + CUDA; `ops/_cuda.py` builds and loads the kernels)
   render/   render() with the reference output schema
   attack/   PGD steps, silhouette boxes, the DAGGER attack loop
-  models/   detector protocol, NMS, success rule, the toy detector
+  models/   detector protocol, NMS, success rule; the detector zoo (toy,
+            YOLO v3u / v5u / v8 / v11, Faster R-CNN R50-FPN, DETR) behind
+            `load_detector`, with the upstream checkpoint loaders
   io/       byte-compatible scene PLY
-  convert   numpy weights/state from `gsattack` into this package
+  convert   numpy weights/state from `gsattack` into this package (scenes,
+            cameras, every detector's flax variables)
   scripts/  micro-benches (`python -m gsattack_torch.scripts.micro_gather`)
 
 Importing the package needs neither CUDA nor a compiler: the kernel library

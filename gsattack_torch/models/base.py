@@ -118,6 +118,33 @@ def evaluate_success(
     return bool(meets), info
 
 
+def detections_to_coco(dets: Detections, image_id: int = -1) -> list[dict]:
+    """COCO-format detection dicts: xywh boxes rounded to 0.1 px."""
+    out = []
+    for i in range(len(dets)):
+        x1, y1, x2, y2 = (float(v) for v in dets.boxes[i])
+        out.append(
+            {
+                "image_id": image_id,
+                "category_id": int(dets.classes[i]),
+                "bbox": [round(x1, 1), round(y1, 1), round(x2 - x1, 1), round(y2 - y1, 1)],
+                "score": float(dets.scores[i]),
+            }
+        )
+    return out
+
+
+def image_batch(image, device: torch.device) -> torch.Tensor:
+    """One (H, W, 3) image, numpy or tensor, as a (1, H, W, 3) float32
+    tensor on `device`."""
+    img = image if isinstance(image, torch.Tensor) else torch.as_tensor(np.asarray(image))
+    return img.to(device, torch.float32)[None]
+
+
+def empty_detections() -> Detections:
+    return Detections(np.zeros((0, 4), np.float32), np.zeros(0, np.float32), np.zeros(0, np.int64))
+
+
 def _to_numpy(image) -> np.ndarray:
     if isinstance(image, torch.Tensor):
         return image.detach().cpu().numpy()
@@ -141,6 +168,14 @@ class Detector:
     def predict(self, image, threshold: float = 0.5) -> Detections:
         """Eval-mode detection (after NMS)."""
         raise NotImplementedError
+
+    def resolve_label_index(self, name):
+        """Class name -> index, or index -> name when given an int
+        ("unknown" past the list)."""
+        if isinstance(name, (int, np.integer)):
+            i = int(name)
+            return self.class_names[i] if 0 <= i < len(self.class_names) else "unknown"
+        return self.class_names.index(name)
 
     @property
     def class_names(self) -> list[str]:

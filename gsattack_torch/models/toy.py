@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from .base import COCO_CLASSES, Detections, Detector, nms
+from .base import COCO_CLASSES, Detections, Detector, empty_detections, image_batch, nms
 
 STRIDE = 8
 
@@ -110,13 +110,7 @@ class ToyDetector(nn.Module, Detector):
     def predict(self, image, threshold: float = 0.5) -> Detections:
         """One merged box per confident class: the bounding box over that
         class's confident cells."""
-        p0 = self.params["w0"]
-        img = (
-            image
-            if isinstance(image, torch.Tensor)
-            else torch.as_tensor(np.asarray(image, np.float32))
-        )
-        head = self(img.to(p0.device, torch.float32)[None])
+        head = self(image_batch(image, self.params["w0"].device))
         obj = torch.sigmoid(head[0, ..., 0])
         cls_prob = torch.softmax(head[0, ..., 1:], dim=-1)
         score_map = (obj[..., None] * cls_prob).cpu().numpy()
@@ -133,9 +127,7 @@ class ToyDetector(nn.Module, Detector):
             scores.append(float(best_score[ys, xs].max()))
             classes.append(int(c))
         if not boxes:
-            return Detections(
-                np.zeros((0, 4), np.float32), np.zeros(0, np.float32), np.zeros(0, np.int64)
-            )
+            return empty_detections()
         boxes = np.asarray(boxes, np.float32)
         scores = np.asarray(scores, np.float32)
         classes = np.asarray(classes, np.int64)

@@ -1,6 +1,8 @@
 """`chip_smoke.pair_work`, the count of (pixel, pair) work behind the
 blend kernels' bounds, against a serial walk of the forward's rules over
-every pixel; and `chip_smoke.gather_bound`, the row gather's byte bound."""
+every pixel; `chip_smoke.gather_bound`, the row gather's byte bound; and
+`chip_smoke.choices`, which pins a detector loss's discrete choices for
+phase 6's card-against-CPU gate."""
 
 import numpy as np
 import pytest
@@ -126,3 +128,35 @@ def test_gather_bound_counts_index_distinct_row_and_output_bytes():
     assert distinct == pytest.approx(s * (1 - np.exp(-m / s)), rel=5e-3)
     bounds = {w: round(chip_smoke.gather_bound(idx, w)[1], 4) for w in (16, 32, 40)}
     assert bounds == pytest.approx({16: 0.0693, 32: 0.1360, 40: 0.1693}, abs=2e-4)
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("yolov8", dict(num_classes=4, imgsz=64)),
+    ("detectron2", dict(num_classes=4, num_proposals=8)),
+    ("detr", dict(num_classes=4, num_queries=6)),
+])
+def test_choices_replay_pins_a_detector_loss(name, kwargs):
+    """Replaying a run's recording reproduces its loss call for call; the
+    choices of another run (other GT boxes) replayed change the loss, so
+    the replay, not a recomputation, decides."""
+    from gsattack_torch.models import load_detector
+
+    det = load_detector(name, seed=1, device="cpu", **kwargs)
+    rng = np.random.default_rng(0)
+    x, y = (torch.tensor(rng.uniform(size=(2, 64, 64, 3)), dtype=torch.float32) for _ in "xy")
+    boxes_a = np.array([[4, 4, 60, 50], [10, 8, 40, 62]], np.float32)
+    boxes_b = np.array([[30, 34, 44, 52], [0, 0, 24, 20]], np.float32)
+    with torch.no_grad():
+        with chip_smoke.choices(name) as rec_a:
+            loss_a = det.loss(x, 2, boxes_a)
+        with chip_smoke.choices(name, replay=rec_a) as used:
+            again = det.loss(x, 2, boxes_a)
+        with chip_smoke.choices(name) as rec_b:
+            loss_b = det.loss(y, 2, boxes_b)
+        with chip_smoke.choices(name, replay=rec_a):
+            crossed = det.loss(y, 2, boxes_b)
+    assert len(rec_a) == len(used) == len(rec_b) > 0
+    assert torch.equal(again, loss_a)
+    assert chip_smoke.choices_differing(rec_a, used) == 0
+    assert chip_smoke.choices_differing(rec_a, rec_b) > 0
+    assert not torch.equal(crossed, loss_b)
