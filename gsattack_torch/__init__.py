@@ -9,15 +9,21 @@ row gather (`csrc/gather.cu`).
 Layout mirrors `gsattack/`:
   core/     GaussianScene, Camera, SH / quaternion / covariance math
   ops/      projection, tile binning, the blend, the row gather (plain
-            PyTorch + CUDA; `ops/_cuda.py` builds and loads the kernels)
+            PyTorch + CUDA; `ops/_cuda.py` builds and loads the kernels),
+            the 3-NN distances that size a new scene's splats
   render/   render() with the reference output schema
-  attack/   PGD steps, silhouette boxes, the DAGGER attack loop
+  attack/   PGD steps, silhouette boxes, the DAGGER attack loop, CLOAK
+            (poisoned training views, then retraining)
+  train/    the 3DGS trainer (L1 + D-SSIM, Adam, the grouping
+            regulariser), densify/prune over a fixed capacity
+  utils/    image losses and metrics, the learning-rate schedule
   models/   detector protocol, NMS, success rule; the detector zoo (toy,
             YOLO v3u / v5u / v8 / v11, Faster R-CNN R50-FPN, DETR) behind
             `load_detector`, with the upstream checkpoint loaders
-  io/       byte-compatible scene PLY
+  io/       byte-compatible scene and point PLY, COLMAP and Blender
+            datasets, training checkpoints
   convert   numpy weights/state from `gsattack` into this package (scenes,
-            cameras, every detector's flax variables)
+            cameras, training states, every detector's flax variables)
   scripts/  micro-benches (`python -m gsattack_torch.scripts.micro_gather`)
 
 Importing the package needs neither CUDA nor a compiler: the kernel library

@@ -1,9 +1,9 @@
 """Weights and state carried across from the JAX package as numpy arrays,
 so that both packages can run the same scene, detector and cameras.
 
-The inputs are plain numpy: a `GaussianScene.params()` dict, the toy
-detector's HWIO weights, a detector's flax `variables` tree, and a
-camera's matrices. Every float array is converted to float32 at this
+The inputs are plain numpy: a `GaussianScene.params()` dict, a training
+state's arrays, the toy detector's HWIO weights, a detector's flax
+`variables` tree, and a camera's matrices. Every float array is converted to float32 at this
 boundary.
 
 The JAX detectors name their flax modules after the upstream torch
@@ -28,6 +28,8 @@ from .core.camera import Camera
 from .core.scene import PARAM_NAMES, GaussianScene
 from .device import resolve_device
 from .models.toy import ToyDetector
+from .train.densify import DensifyStats
+from .train.trainer import TrainState
 
 
 def _f32(a, dev) -> torch.Tensor:
@@ -52,6 +54,24 @@ def scene_from_numpy(
         max_sh_degree=max_sh_degree,
     )
 
+
+
+def train_state_from_jax(state, device: str | torch.device = "cuda") -> TrainState:
+    """A training state holding a JAX `TrainState`'s values: its scene,
+    its optax `ScaleByAdamState` (count, mu, nu), its `DensifyStats` and
+    its step, each read as numpy."""
+    dev = resolve_device(device)
+    sc = state.scene
+    opt = state.opt_state
+    return TrainState(
+        scene=scene_from_numpy({k: np.asarray(v) for k, v in sc.params().items()},
+                               np.asarray(sc.alive), sc.active_sh_degree, device=dev),
+        mu={k: _f32(v, dev) for k, v in opt.mu.items()},
+        nu={k: _f32(v, dev) for k, v in opt.nu.items()},
+        count=int(np.asarray(opt.count)),
+        stats=DensifyStats(*(_f32(v, dev) for v in state.stats)),
+        step=int(np.asarray(state.step)),
+    )
 
 def toy_detector_from_numpy(
     params: Mapping[str, np.ndarray],

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.knn import mean_knn_dist2
 from . import sh as shlib
 from .transforms import covariance6, inverse_sigmoid
 
@@ -72,6 +73,16 @@ class GaussianScene:
 
     def replace(self, **changes) -> "GaussianScene":
         return dataclasses.replace(self, **changes)
+
+    def to(self, device: str | torch.device) -> "GaussianScene":
+        """The same scene with its tensors on `device`."""
+        return self.replace(**{name: getattr(self, name).to(device)
+                               for name in PARAM_NAMES + ("alive",)})
+
+    def oneup_sh_degree(self) -> "GaussianScene":
+        if self.active_sh_degree < self.max_sh_degree:
+            return self.replace(active_sh_degree=self.active_sh_degree + 1)
+        return self
 
     def concat(self, other: "GaussianScene") -> "GaussianScene":
         """Append another scene's points."""
@@ -131,19 +142,15 @@ def scene_from_points(
     mean-3NN-dist^2, 1e-7))) per axis, identity rotation, opacity 0.1 and
     random object features RGB2SH(U[0, 1)) drawn from `generator`.
 
-    `knn_dist2` (the mean squared 3-NN distance per point) must be given:
-    the nearest-neighbour op is not ported yet (ROADMAP.md Queue 1 item
-    11, scene ops)."""
-    if knn_dist2 is None:
-        raise NotImplementedError(
-            "knn_dist2=None needs the 3-NN op, not ported yet "
-            "(ROADMAP.md Queue 1 item 11, scene ops)"
-        )
+    `knn_dist2` (the mean squared 3-NN distance per point) is computed on
+    `device` by `ops.knn.mean_knn_dist2` when it is None."""
     dev = resolve_device(device)
+    if knn_dist2 is None:
+        knn_dist2 = mean_knn_dist2(torch.as_tensor(np.asarray(points, np.float32), device=dev))
     n = points.shape[0]
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    dist2 = torch.clamp(torch.as_tensor(knn_dist2, dtype=torch.float32), min=1e-7)
+    dist2 = torch.clamp(torch.as_tensor(knn_dist2, dtype=torch.float32).cpu(), min=1e-7)
     log_scale = torch.log(torch.sqrt(dist2))[:, None].repeat(1, 3)
     k_rest = (max_sh_degree + 1) ** 2 - 1
     obj = shlib.rgb_to_sh(torch.rand((n, NUM_OBJECTS), generator=generator))

@@ -108,3 +108,8 @@ def eval_sh_features(deg: int, features: torch.Tensor, dirs: torch.Tensor) -> to
 def rgb_to_sh(rgb):
     """Inverse of the DC band: (rgb - 0.5) / C0."""
     return (rgb - 0.5) / C0
+
+
+def sh_to_rgb_dc(sh):
+    """The DC band alone: sh * C0 + 0.5."""
+    return sh * C0 + 0.5

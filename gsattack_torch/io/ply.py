@@ -174,3 +174,47 @@ def load_scene_ply(
         active_sh_degree=max_sh_degree,
         max_sh_degree=max_sh_degree,
     )
+
+
+def read_points_ply(path: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Read a plain point-cloud PLY -> (points, colours in [0, 1], normals),
+    as the reference's `fetchPly`: colours default to 0.5 and normals to
+    zeros when the file has none."""
+    t = read_ply_vertex_table(path)
+    pts = np.stack([t["x"], t["y"], t["z"]], axis=1).astype(np.float32)
+    if "red" in t:
+        cols = np.stack([t["red"], t["green"], t["blue"]], axis=1).astype(np.float32) / 255.0
+    else:
+        cols = np.full_like(pts, 0.5)
+    if "nx" in t:
+        normals = np.stack([t["nx"], t["ny"], t["nz"]], axis=1).astype(np.float32)
+    else:
+        normals = np.zeros_like(pts)
+    return pts, cols, normals
+
+
+def store_points_ply(path: str, xyz: np.ndarray, rgb: np.ndarray) -> None:
+    """Write a coloured point cloud (the reference's `storePly`): float32
+    x y z and zero normals, then uchar red green blue; `rgb` in [0, 255]."""
+    n = xyz.shape[0]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    header = [
+        "ply",
+        "format binary_little_endian 1.0",
+        f"element vertex {n}",
+        *(f"property float {k}" for k in ("x", "y", "z", "nx", "ny", "nz")),
+        *(f"property uchar {k}" for k in ("red", "green", "blue")),
+        "end_header",
+    ]
+    dtype = np.dtype(
+        [(k, "<f4") for k in ("x", "y", "z", "nx", "ny", "nz")]
+        + [(k, "u1") for k in ("red", "green", "blue")]
+    )
+    table = np.zeros(n, dtype=dtype)
+    for i, k in enumerate(("x", "y", "z")):
+        table[k] = xyz[:, i]
+    for i, k in enumerate(("red", "green", "blue")):
+        table[k] = np.asarray(rgb[:, i], np.uint8)
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        f.write(table.tobytes())

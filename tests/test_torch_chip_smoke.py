@@ -160,3 +160,67 @@ def test_choices_replay_pins_a_detector_loss(name, kwargs):
     assert chip_smoke.choices_differing(rec_a, used) == 0
     assert chip_smoke.choices_differing(rec_a, rec_b) > 0
     assert not torch.equal(crossed, loss_b)
+
+
+def test_colmap_model_writer_reads_back(tmp_path):
+    """Phase 7b's COLMAP text model: the views come back from
+    `load_scene_info` within 1e-6, the points as written (float32) and the
+    colours as bytes; the orbiting views give a nonzero nerf++ radius."""
+    from gsattack_torch.attack import expand_viewpoints
+    from gsattack_torch.core.camera import CameraExtrinsics
+    from gsattack_torch.io import load_scene_info
+
+    base = CameraExtrinsics(np.eye(3), np.array([0.0, 0.0, 6.0]), 1.0, 0.8, 48, 40)
+    exts = expand_viewpoints([base], 5)
+    rng = np.random.default_rng(3)
+    pts = rng.normal(size=(300, 3)).astype(np.float32)
+    cols = rng.uniform(size=(300, 3)).astype(np.float32)
+    chip_smoke.write_colmap_model(str(tmp_path), exts, pts, cols)
+    info = load_scene_info(str(tmp_path), shuffle=False)
+    assert [c.image_name for c in info.train_cameras] == [f"view_{i:03d}" for i in range(5)]
+    assert chip_smoke.cameras_err(info.train_cameras, exts) <= 1e-6
+    assert chip_smoke.cameras_err(info.train_cameras[:4], exts) == np.inf
+    np.testing.assert_array_equal(info.points, pts)
+    np.testing.assert_array_equal(info.colors, np.round(cols * 255) / np.float32(255))
+    assert info.nerf_normalization["radius"] > 1.0
+    assert all(c.image is None for c in info.train_cameras)
+
+
+def test_train_config_scales_the_schedule_only():
+    """Phase 7b's `TrainConfig`: configs/config.yaml's values (the
+    defaults), with only the schedule cut, the position rate scaled by the
+    extent and the densify threshold moved from NDC to pixel units; every
+    schedule event falls inside the run and SH reaches degree 3."""
+    import dataclasses
+    import os
+
+    import yaml
+
+    from gsattack_torch.train import TrainConfig
+
+    with open(os.path.join(chip_smoke.ROOT, "configs", "config.yaml")) as f:
+        yml = yaml.safe_load(f)
+    default = TrainConfig()
+    shared = [f.name for f in dataclasses.fields(TrainConfig) if f.name in yml]
+    assert len(shared) >= 20
+    for name in shared:
+        assert getattr(default, name) == yml[name], name
+    cfg = chip_smoke.train_config(2.5, 800)
+    changed = {f.name for f in dataclasses.fields(TrainConfig)
+               if getattr(cfg, f.name) != getattr(default, f.name)}
+    assert changed == set(chip_smoke.TRAIN_REDUCED) | {"spatial_lr_scale",
+                                                      "densify_grad_threshold"}
+    for name, (was, here) in chip_smoke.TRAIN_REDUCED.items():
+        assert getattr(default, name) == was and getattr(cfg, name) == here, name
+    assert cfg.spatial_lr_scale == 2.5 and cfg.densify_grad_threshold == pytest.approx(5e-7)
+    assert cfg.densify_from_iter < cfg.densify_until_iter <= cfg.iterations
+    assert cfg.opacity_reset_interval < cfg.densify_until_iter
+    assert 3 * cfg.sh_increase_interval <= cfg.iterations
+
+
+def test_loss_fell_compares_the_first_and_last_windows():
+    falling = np.linspace(1.0, 0.1, 200)
+    assert chip_smoke.loss_fell(falling)[0]
+    assert not chip_smoke.loss_fell(falling[::-1])[0]
+    fell, first, last = chip_smoke.loss_fell(np.r_[np.ones(50), np.full(100, 5.0), np.ones(50)])
+    assert not fell and first == last == 1.0

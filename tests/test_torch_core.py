@@ -127,8 +127,11 @@ def test_scene_from_points_matches():
     # Object features are random draws (another generator); same range.
     obj = np_(got.obj_dc) * tsh.C0 + 0.5
     assert obj.shape == (20, 1, 16) and obj.min() >= 0.0 and obj.max() < 1.0
-    with pytest.raises(NotImplementedError):
-        tscene.scene_from_points(pts, cols, device="cpu")
+    # Without knn_dist2 both compute the mean 3-NN distances themselves, the
+    # cross term by a float32 matmul each (the 3-NN op's tolerance, 1e-5).
+    ref = jscene.scene_from_points(pts, cols, max_sh_degree=2)
+    got = tscene.scene_from_points(pts, cols, max_sh_degree=2, device="cpu")
+    np.testing.assert_allclose(np_(got.log_scale), np.asarray(ref.log_scale), rtol=1e-5)
 
 
 def test_camera_make_yaw_and_stack_match():
