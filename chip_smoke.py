@@ -1327,6 +1327,29 @@ def states_differ(a, b) -> tuple[bool, float]:
     return True, max(float((x - y).abs().max()) for x, y in pairs)
 
 
+def densify_inputs(trainer, iteration: int) -> dict:
+    """What the trainer's next densify pass will see: quantiles of the
+    averaged mean2d gradients of the alive, visible points, and how many
+    points each rule picks (clone, split, low opacity, and the screen-size
+    limit when it is on)."""
+    import torch
+
+    cfg, st = trainer.cfg, trainer.state
+    g = st.stats.xyz_gradient_accum / st.stats.denom.clamp(min=1.0)
+    seen = st.scene.alive & (st.stats.denom > 0)
+    q = torch.quantile(g[seen].float().cpu(), torch.tensor([0.5, 0.99, 0.999])).tolist()
+    hot = (g >= cfg.densify_grad_threshold) & st.scene.alive
+    small = st.scene.scaling.max(dim=-1).values <= cfg.percent_dense * trainer.cameras_extent
+    out = {"grad q50": q[0], "q99": q[1], "q99.9": q[2], "clone": int((hot & small).sum()),
+           "split": int((hot & ~small).sum()),
+           "low opacity": int(((torch.sigmoid(st.scene.opacity_logit[:, 0]) < cfg.min_opacity)
+                                & st.scene.alive).sum())}
+    if iteration > cfg.opacity_reset_interval:
+        out["wider than max_screen_size"] = int(
+            ((st.stats.max_radii2d > cfg.max_screen_size) & st.scene.alive).sum())
+    return out
+
+
 def train_stage_breakdown(trainer, cam, gt, reps: int = 3) -> dict:
     """Host wall time of each stage of one training step on the trainer's
     state, the card synchronised around every stage, mean over `reps`
@@ -1436,7 +1459,7 @@ def phase_train(device) -> dict:
         return float(psnr(img, held_gt))
 
     psnr_before = held_psnr()
-    # Each densify pass, timed: (step, ms, (alive, capacity) before, after).
+    # Each densify pass: (step, ms, (alive, capacity) before, after, its inputs).
     events = []
     densify = trainer.maybe_densify
 
@@ -1445,13 +1468,15 @@ def phase_train(device) -> dict:
                 and iteration % cfg.densification_interval == 0):
             return densify(iteration, *args, **kw)
         before = (int(trainer.state.scene.alive.sum()), trainer.state.scene.num_points)
+        why = densify_inputs(trainer, iteration)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         densify(iteration, *args, **kw)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         events.append((iteration, ms, before,
-                       (int(trainer.state.scene.alive.sum()), trainer.state.scene.num_points)))
+                       (int(trainer.state.scene.alive.sum()), trainer.state.scene.num_points),
+                       why))
 
     trainer.maybe_densify = timed_densify
     log(f"  {len(init.xyz)} points -> initial scene by the 3-NN op on the card "
@@ -1487,9 +1512,10 @@ def phase_train(device) -> dict:
     alive0, alive1 = TRAIN_SPLATS, int(final.scene.alive.sum())
     cap0 = int(TRAIN_SPLATS * cfg.capacity_headroom)
     trunc = int(trainer.max_truncated_pairs)
-    for it, ms, before, after in events:
+    for it, ms, before, after, why in events:
         log(f"    densify at step {it}: {ms:.2f} ms, alive {before[0]} -> {after[0]}, "
-            f"capacity {before[1]} -> {after[1]}")
+            f"capacity {before[1]} -> {after[1]}; " + ", ".join(
+                f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}" for k, v in why.items()))
     log(f"  fit: {len(losses)} steps, loss first {LOSS_WINDOW} mean {first:.5f}, last "
         f"{LOSS_WINDOW} mean {last:.5f}; held-out PSNR {psnr_before:.3f} -> {psnr_after:.3f} dB; "
         f"alive {alive0} -> {alive1}, capacity {cap0} -> {final.scene.num_points}; SH degree "
@@ -1503,7 +1529,7 @@ def phase_train(device) -> dict:
             range(1, cfg.iterations + 1)),
         "loss fell": fell,
         "held-out PSNR rose": psnr_after > psnr_before,
-        "densify changed the alive count": any(b[0] != a[0] for _, _, b, a in events),
+        "densify changed the alive count": any(b[0] != a[0] for _, _, b, a, _ in events),
         "SH degree 3": final.scene.active_sh_degree == 3,
         "launches": min(launches.values()) >= cfg.iterations,
         "checkpoint restored equal": restore_equal,
@@ -1517,7 +1543,7 @@ def phase_train(device) -> dict:
     return {"init": init, "cams": cams, "gts": train_gts, "cfg": cfg, "extent": extent,
             "summary": {
                 "train_it_s": train_it_s, "launches": launches, "knn_ms": knn_ms,
-                "densify_events": [(i, ms, b, a) for i, ms, b, a in events],
+                "densify_events": events,
                 "psnr_before": psnr_before, "psnr_after": psnr_after,
                 "loss_first_mean": first, "loss_last_mean": last, "alive": [alive0, alive1],
                 "capacity": [cap0, final.scene.num_points], "max_truncated_pairs": trunc,
