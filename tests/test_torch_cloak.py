@@ -12,10 +12,10 @@ import torch
 
 from gsattack.attack.cloak import CloakConfig as JCloak
 from gsattack.attack.cloak import poison_image as j_poison
-from gsattack.render import render as j_render
 from gsattack_torch.attack.cloak import CloakConfig as TCloak
 from gsattack_torch.attack.cloak import poison_image as t_poison
 from gsattack_torch.attack.cloak import run_cloak
+from gsattack_torch.render import render as t_render
 from gsattack_torch.train import TrainConfig
 from tests.conftest import make_toy_camera, make_toy_scene
 from tests.test_torch_dagger import _toy_pair
@@ -27,9 +27,12 @@ BBOX = np.array([8, 8, 40, 40], np.float32)
 
 
 def _views():
-    target = make_toy_scene(n=32, seed=8)
-    cams = [make_toy_camera(width=48, height=48, z=0.1 * i) for i in range(2)]
-    return cams, [np.asarray(j_render(target, c, jnp.zeros(3))["render"]) for c in cams]
+    """Two cameras and GT renders of a target scene (by the port's plain
+    render: the images are only inputs, the same on both sides)."""
+    target = port_scene(make_toy_scene(n=32, seed=8))
+    cams = [port_camera(make_toy_camera(width=48, height=48, z=0.1 * i)) for i in range(2)]
+    with torch.no_grad():
+        return cams, [np_(t_render(target, c, torch.zeros(3))["render"]) for c in cams]
 
 
 @pytest.mark.parametrize("targeted", [True, False])
@@ -63,7 +66,7 @@ def test_run_cloak_poisons_and_retrains(monkeypatch):
                        opacity_reset_interval=10_000)
     lines = []
     scene, poisoned = run_cloak(
-        port_scene(make_toy_scene(n=32, seed=10)), [port_camera(c) for c in cams], gts, tdet,
+        port_scene(make_toy_scene(n=32, seed=10)), cams, gts, tdet,
         ccfg, train_cfg=tcfg, iterations=5, log=lines.append, device="cpu",
     )
     assert len(poisoned) == 1 and len(lines) == 2

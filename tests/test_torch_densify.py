@@ -33,7 +33,8 @@ def _stats(c, accum, denom=None, radii=None):
 
 
 def _scenario(name):
-    """(JAX scene, accum, radii, kwargs) of one densify case."""
+    """(JAX scene, accum, radii, kwargs) of one densify case; the first four
+    share a capacity of 16, so that the JAX pass compiles once for them."""
     rng = np.random.default_rng(7)
     if name == "clone":
         sc = make_toy_scene(n=8).pad_to(16)
@@ -42,19 +43,19 @@ def _scenario(name):
         accum[[0, 3]] = 10.0
         return sc, accum, None, dict(max_grad=1.0, extent=1.0)
     if name == "split":
-        sc = make_toy_scene(n=4).pad_to(16)
+        sc = make_toy_scene(n=8).pad_to(16)
         sc = sc.replace(log_scale=jnp.full_like(sc.log_scale, 2.0))
         accum = np.zeros(16)
         accum[1] = 10.0
         return sc, accum, None, dict(max_grad=1.0, extent=1.0, percent_dense=0.01)
     if name == "prune":
-        sc = make_toy_scene(n=6).pad_to(8)
-        sc = sc.replace(opacity_logit=jnp.full((8, 1), -10.0).at[0, 0].set(2.0).at[1, 0].set(2.0))
-        return sc, np.zeros(8), None, {}
+        sc = make_toy_scene(n=8).pad_to(16)
+        sc = sc.replace(opacity_logit=jnp.full((16, 1), -10.0).at[0, 0].set(2.0).at[1, 0].set(2.0))
+        return sc, np.zeros(16), None, {}
     if name == "overflow":
-        sc = make_toy_scene(n=8)
+        sc = make_toy_scene(n=16)
         sc = sc.replace(log_scale=jnp.full_like(sc.log_scale, -10.0))
-        return sc, np.full(8, 10.0), None, dict(max_grad=1.0)
+        return sc, np.full(16, 10.0), None, dict(max_grad=1.0)
     # mixed: clones, splits and prunes at once, more children than free
     # slots, and the screen-size limit
     sc = make_toy_scene(n=40, seed=3).pad_to(48)
@@ -98,7 +99,7 @@ def test_densify_and_prune_matches(name):
                 np.testing.assert_allclose(np_(tmi[k]), np.asarray(v), rtol=0, atol=1e-6,
                                            err_msg=k)
     if name == "overflow":
-        assert tdrop == 8
+        assert tdrop == 16
     if name == "mixed":
         assert tdrop > 0 and int(tout.alive.sum()) == c
 

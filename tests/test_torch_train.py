@@ -14,12 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from gsattack.render import render as j_render
 from gsattack.train import TrainConfig as JConfig
 from gsattack.train import Trainer as JTrainer
 from gsattack.train.reg3d import reg3d_loss as j_reg3d
 from gsattack_torch.convert import train_state_from_jax
 from gsattack_torch.io import checkpoint as ckpt
+from gsattack_torch.render import render as t_render
 from gsattack_torch.train import TrainConfig as TConfig
 from gsattack_torch.train import Trainer as TTrainer
 from gsattack_torch.train.reg3d import reg3d_loss as t_reg3d
@@ -35,9 +35,12 @@ DENSIFY_AT = (3, 5)
 
 
 def _toy_problem():
-    target = make_toy_scene(n=48, seed=5)
+    """Three JAX cameras, and GT renders of a target scene (by the port's
+    plain render: the images are only inputs, the same on both sides)."""
+    target = port_scene(make_toy_scene(n=48, seed=5))
     cams = [make_toy_camera(width=32, height=32, z=0.15 * i) for i in range(3)]
-    gts = [np.asarray(j_render(target, c, jnp.zeros(3))["render"]) for c in cams]
+    with torch.no_grad():
+        gts = [np_(t_render(target, port_camera(c), torch.zeros(3))["render"]) for c in cams]
     rng = np.random.default_rng(0)
     classifier = (rng.normal(size=(8, 16)).astype(np.float32),
                   rng.normal(size=8).astype(np.float32))
@@ -65,9 +68,9 @@ def test_trainer_matches_the_jax_trainer_through_two_densify_passes():
     kw = dict(densify_from_iter=0, densify_until_iter=100, densification_interval=1,
               opacity_reset_interval=10_000, sh_increase_interval=10_000, use_reg3d=True,
               reg3d_interval=2, reg3d_sample_size=REG3D_SAMPLE)
-    jt = JTrainer(make_toy_scene(n=48, seed=9), JConfig(**kw), classifier=classifier)
-    tt = TTrainer(port_scene(make_toy_scene(n=48, seed=9)), TConfig(**kw),
-                  classifier=classifier, device="cpu")
+    init = make_toy_scene(n=48, seed=9)
+    jt = JTrainer(init, JConfig(**kw), classifier=classifier)
+    tt = TTrainer(port_scene(init), TConfig(**kw), classifier=classifier, device="cpu")
     tt.state = train_state_from_jax(jt.state, device="cpu")
     tcams = [port_camera(c) for c in cams]
     capacities = []
