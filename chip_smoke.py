@@ -3,8 +3,10 @@
 `gsattack_torch/csrc` (the tile blend and the row gather), holds them
 against their plain PyTorch version, drives the DAGGER attack end to end,
 drives the row gather's micro-bench, runs the detector zoo at full width,
-with DAGGER against each main detector, and trains a 3DGS scene and
-CLOAKs it at full width.
+with DAGGER against each main detector, trains a 3DGS scene and CLOAKs
+it at full width, and drives the command line (train, attack,
+render-eval, asr, coco-ap, recolor, combine, grouping-render) through
+files.
 
     python3 chip_smoke.py
 
@@ -89,6 +91,35 @@ Phases (any failure raises and exits non-zero):
      view's assignment replayed, float64) below the clean view's, the
      scene finite, the blend launched each step. Prints the poison time
      per view and the retraining it/s.
+
+  8. The command line (`gsattack_torch.cli.main([..., "--device",
+     "cuda"])`, in this process, the blend's launch counters set to 0
+     before each command and read after it) on phase 7's target and its 9
+     views, through files. (a) A COLMAP text model with GT PNGs written by
+     `io/png.py` from the renders, and the noisy centres; `load_scene_info`
+     reads the frames back equal to the uint8 renders. (b) `train`, 300
+     steps, phase 7b's schedule cuts halved (`CLI_TRAIN_REDUCED`; no
+     opacity reset falls in the run): rc 0,
+     the iteration-300 PLY read back finite, each blend kernel launched at
+     least once a step; prints train it/s over the command's wall time.
+     (c) `attack` in the default config's mode C (the trained PLY attacked
+     over a seeded 100k-splat background PLY), yolov8n@640 (seed 0), car,
+     4 yaw-augmented views in one batch, max_iters 5: rc 0 or 1 (no
+     success, as seeded weights give), max_iters - 1 finite losses unless
+     it succeeded, both kernels launched, the combined scene the two PLYs'
+     splats, a silhouette box in each attack view; prints PGD it/s from
+     the per-iteration lines. (d)
+     `render-eval` on the trained scene and on the attack's final scene
+     (saved as a PLY), all 9 cameras: 9 records in each log, each with a
+     silhouette GT box, 18 forward
+     launches and no backward a run; prints seconds per camera. (e) `asr`
+     and `coco-ap` over the two logs: rc 0, 9 cameras parsed from each.
+     (f) `recolor` in its four modes (f_rest zero on read-back), `combine`
+     of the two PLYs over the 9 cameras (9 PNGs of 800x800, 9 forward
+     launches), `grouping-render` (9 frames; no video without OpenCV),
+     and the convex hull of the x < 0 splats, timed. `predict-batch` and
+     `write_images=true` stay out: their annotated images are drawn by
+     Pillow, which the card's machine does not have.
 
 Prints the card's line and the kernels as one JSON line, then the ok
 line last.
@@ -1631,6 +1662,313 @@ def phase_cloak(trained: dict, device) -> dict:
             "views": rows}
 
 
+# Phase 8: the command line on the card. Phase 7's target and 9 views go
+# out as a COLMAP text model with GT PNGs; `gsattack_torch.cli.main` then
+# trains, attacks, evaluates and edits through the files, each command in
+# this process with the blend's launch counters set to 0 before it.
+CLI_TRAIN_ITERS = 300
+# configs/config.yaml's schedule cut to CLI_TRAIN_ITERS steps: phase 7b's
+# cuts (TRAIN_REDUCED) halved with the step count, the threshold in pixel
+# units as `train_config` converts it; `sh_increase_interval` and
+# `capacity_headroom` are not in configs/config.yaml, and `cmd_train`
+# reads them when given. The opacity reset keeps its 3,000 steps, so none
+# falls in the run: halved to 150, it came 50 steps before the densify
+# pass at 200, which (with the screen-size limit, on after the first
+# reset) pruned the scene to 3,808 dark splats whose renders have no
+# silhouette.
+CLI_TRAIN_REDUCED = {
+    "position_lr_max_steps": (30_000, 300),
+    "densify_from_iter": (500, 50),
+    "densify_until_iter": (15_000, 250),
+    "sh_increase_interval": (1_000, 75),
+    "capacity_headroom": (1.5, 1.1),
+    "densify_grad_threshold": (2e-4, 2e-4 * 2.0 / TRAIN_SIZE),
+}
+CLI_BACKGROUND_SPLATS = 100_000
+CLI_ATTACK_ITERS = 5
+CLI_DETECTOR = ["scene.detector_name=yolov8", "scene.detector_num_classes=80",
+                "scene.detector_imgsz=640"]
+
+
+def yaml_value(x) -> str:
+    """A number as an override value that YAML 1.1 reads back as the same
+    number: a float needs a '.' in its mantissa (`5e-07` is a string)."""
+    if isinstance(x, float):
+        mant, _, exp = repr(x).partition("e")
+        return (mant if "." in mant else mant + ".0") + (f"e{exp}" if exp else "")
+    return str(x)
+
+
+class StdoutLines:
+    """A context that passes stdout through and keeps each line printed,
+    with the time it was completed."""
+
+    def __init__(self):
+        self.lines, self._buf, self._out = [], "", None
+
+    def write(self, s: str) -> int:
+        self._out.write(s)
+        self._buf += s
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append((time.perf_counter(), line))
+        return len(s)
+
+    def flush(self) -> None:
+        self._out.flush()
+
+    def __enter__(self):
+        self._out, sys.stdout = sys.stdout, self
+        return self
+
+    def __exit__(self, *exc):
+        sys.stdout = self._out
+
+
+def run_cli(argv: list, launches: dict, name: str, device: bool = True
+            ) -> tuple[int, float, list]:
+    """`gsattack_torch.cli.main(argv)`, with `--device cuda` for a command
+    that builds tensors (`device`), and with the blend's
+    launch counters set to 0 just before and read just after (into
+    `launches[name]`). Returns (rc, wall s, stdout lines with times)."""
+    import torch
+
+    from gsattack_torch import cli
+    from gsattack_torch.ops import blend
+
+    torch.cuda.synchronize()
+    blend.FWD_LAUNCHES = blend.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    with StdoutLines() as out:
+        rc = cli.main([*argv, "--device", "cuda"] if device else argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {"fwd": blend.FWD_LAUNCHES, "bwd": blend.BWD_LAUNCHES}
+    launches[name] = {k: launches.get(name, {}).get(k, 0) + v for k, v in got.items()}
+    log(f"  cli {argv[0]}: rc {rc} in {wall:.2f} s; launches fwd {got['fwd']}, "
+        f"bwd {got['bwd']}")
+    return rc, wall, out.lines
+
+
+@contextlib.contextmanager
+def render_log(path: str):
+    """A file handler on the `render` logger, as a render-eval run's
+    capture."""
+    import logging
+
+    rlog = logging.getLogger("render")
+    rlog.setLevel(logging.INFO)
+    fh = logging.FileHandler(path)
+    fh.setFormatter(logging.Formatter("%(asctime)s - %(levelname)s - %(message)s"))
+    rlog.addHandler(fh)
+    try:
+        yield
+    finally:
+        rlog.removeHandler(fh)
+        fh.close()
+
+
+def phase_cli(device) -> dict:
+    """Phase 8: the CLI on the card at full width, through files: (a) the
+    COLMAP model with GT PNGs, read back equal; (b) `train`; (c) `attack`
+    in mode C against yolov8n@640 over a seeded background; (d)
+    `render-eval` on the trained and on the attacked scene; (e) `asr` and
+    `coco-ap`; (f) `recolor`, `combine`, `grouping-render` and the convex
+    hull on the trained splats."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    import gsattack_torch.attack as attack_mod
+    from gsattack_torch.attack import expand_viewpoints, render_views, silhouette_bboxes
+    from gsattack_torch.core.camera import stack_cameras
+    from gsattack_torch.core.sh import sh_to_rgb_dc
+    from gsattack_torch.evals import load_preds
+    from gsattack_torch.io import load_scene_info, load_scene_ply, save_scene_ply
+    from gsattack_torch.io.png import read_png, to_uint8, write_png
+    from gsattack_torch.ops.hull import points_inside_convex_hull
+
+    t_phase = time.perf_counter()
+    launches, summary = {}, {}
+    target, exts, gts = training_views(device)
+    g = torch.Generator().manual_seed(11)
+    pts = target.xyz.cpu() + torch.randn(target.xyz.shape, generator=g) * TRAIN_POINT_NOISE
+    cols = sh_to_rgb_dc(target.f_dc[:, 0].cpu()).clamp(0, 1)
+    configs = os.path.join(ROOT, "configs")
+    with tempfile.TemporaryDirectory() as work:
+        # 8a: the COLMAP model, its GT frames written by io/png.py.
+        src = os.path.join(work, "scene")
+        write_colmap_model(src, exts, pts.numpy(), cols.numpy())
+        frames = [to_uint8(gt) for gt in gts]
+        for i, fr in enumerate(frames):
+            write_png(os.path.join(src, "images", f"view_{i:03d}.png"), fr)
+        info = load_scene_info(src, shuffle=False)
+        read_back = all(c.image is not None and np.array_equal(
+            c.image, fr.astype(np.float32) / 255.0) for c, fr in zip(info.train_cameras, frames))
+        log(f"phase 8a COLMAP model of {len(exts)} views with {TRAIN_SIZE}x{TRAIN_SIZE} GT PNGs "
+            f"and {len(pts)} points; frames read back equal: {read_back}")
+        if not (read_back and len(info.train_cameras) == len(exts)):
+            raise AssertionError("phase 8a: the GT frames did not read back equal")
+
+        # 8b: train.
+        model = os.path.join(work, "model")
+        common = [f"--config-dir={configs}", f"scene.source_path={src}",
+                  f"scene.model_path={model}", "scene.synthetic=false", "scene.cam_indices=[]",
+                  "sh_degree=3"]
+        cuts = [f"{k}={yaml_value(here)}" for k, (_, here) in CLI_TRAIN_REDUCED.items()]
+        rc, wall, lines = run_cli(["train", "--iterations", str(CLI_TRAIN_ITERS), *common, *cuts],
+                                  launches, "train")
+        ply = os.path.join(model, "point_cloud", f"iteration_{CLI_TRAIN_ITERS}",
+                           "point_cloud.ply")
+        trained = load_scene_ply(ply, device=device) if os.path.exists(ply) else None
+        summary["train"] = {"rc": rc, "wall_s": wall, "it_s": CLI_TRAIN_ITERS / wall,
+                            "splats": trained and trained.num_points,
+                            "loss_lines": [line for _, line in lines if line.startswith("iter")]}
+        log(f"  train {summary['train']['it_s']:.3f} it/s over the command's wall time "
+            f"({CLI_TRAIN_ITERS} steps, set-up and the PLY included); {summary['train']}")
+        if not (rc == 0 and trained is not None and all(
+                bool(torch.isfinite(v).all()) for v in trained.params().values())
+                and min(launches["train"].values()) >= CLI_TRAIN_ITERS):
+            raise AssertionError(f"phase 8b gates failed: {summary['train']}, {launches}")
+
+        # 8c: attack, mode C: the trained scene attacked over a background.
+        bg_ply = os.path.join(work, "background.ply")
+        save_scene_ply(build_scene(CLI_BACKGROUND_SPLATS, seed=1, knn=1e-4, device=device),
+                       bg_ply)
+        kept = {}
+        run_dagger = attack_mod.run_dagger
+
+        def keep_result(scene, *a, **kw):
+            kept["scene"], kept["frozen"] = scene, kw.get("frozen_scene")
+            kept["res"] = run_dagger(scene, *a, **kw)
+            return kept["res"]
+
+        attack_mod.run_dagger = keep_result
+        try:
+            rc, wall, lines = run_cli(
+                ["attack", *common, "combine_splats=true", "no_groups=true",
+                 f"scene.combine_splats_paths=[{ply}, {bg_ply}]", *CLI_DETECTOR,
+                 "scene.target=car", "scene.cam_indices=[0]", "add_cams=4", "batch_mode=true",
+                 "batch_size=4",
+                 f"max_iters={CLI_ATTACK_ITERS}", "eval_every=1",
+                 f"splat_asset_path={work}"], launches, "attack")
+        finally:
+            attack_mod.run_dagger = run_dagger
+        res = kept["res"]
+        stamps = [t for t, line in lines if line.startswith("Iteration:")]
+        boxes = silhouette_bboxes(render_views(
+            kept["scene"], stack_cameras([v.build(device=device) for v in expand_viewpoints(
+                info.train_cameras[:1], 4)]), torch.zeros(3, device=device)).detach())
+        trunc = [line for _, line in lines if "truncated" in line]
+        combined = kept["scene"].num_points + kept["frozen"].num_points
+        summary["attack"] = {
+            "rc": rc, "wall_s": wall, "losses": res.losses, "success": res.success,
+            "pgd_it_s": (len(stamps) - 1) / (stamps[-1] - stamps[0]) if len(stamps) > 1 else None,
+            "splats": [kept["scene"].num_points, kept["frozen"].num_points],
+            "gt_boxes": boxes.tolist(), "truncated": trunc}
+        log(f"  attack: {summary['attack']}")
+        if not (rc in (0, 1) and 0 < len(res.losses) <= CLI_ATTACK_ITERS - 1
+                and np.isfinite(res.losses).all() and (res.success or len(res.losses)
+                                                         == CLI_ATTACK_ITERS - 1)
+                and combined == trained.num_points + CLI_BACKGROUND_SPLATS
+                and bool((boxes[:, 2:] > boxes[:, :2]).all())
+                and min(launches["attack"].values()) > 0):
+            raise AssertionError(f"phase 8c gates failed: {summary['attack']}, {launches}")
+        adv_model = os.path.join(work, "adv_model")
+        save_scene_ply(res.scene, os.path.join(adv_model, "point_cloud", "iteration_1",
+                                               "point_cloud.ply"))
+
+        # 8d: render-eval on the trained (benign) and the attacked scene.
+        logs = {}
+        for tag, mp in (("benign", model), ("adv", adv_model)):
+            logs[tag] = os.path.join(work, f"{tag}_render.log")
+            before = dict(launches.get("render-eval", {}))
+            with render_log(logs[tag]):
+                rc, wall, _ = run_cli(
+                    ["render-eval", *[o for o in common if "model_path" not in o],
+                     f"scene.model_path={mp}", "combine_splats=false", "no_groups=true",
+                     "write_images=false", *CLI_DETECTOR, "scene.target=car"],
+                    launches, "render-eval")
+            run = {k: launches["render-eval"][k] - before.get(k, 0) for k in ("fwd", "bwd")}
+            with open(logs[tag]) as f:
+                records = [json.loads(line.split(" - ")[-1]) for line in f if '"cam"' in line]
+            seen = sum(1 for r in records if r["gt_bbox"][2] > 0 and r["gt_bbox"][3] > 0)
+            summary[f"render_eval_{tag}"] = {
+                "rc": rc, "s_per_camera": wall / len(exts), "records": len(records),
+                "silhouettes": seen, "launches": run,
+                "pred_classes": [r["pred_class"] for r in records]}
+            log(f"  render-eval {tag}: {wall / len(exts):.3f} s per camera; "
+                f"{summary[f'render_eval_{tag}']}")
+            if not (rc == 0 and len(records) == seen == len(exts)
+                    and run == {"fwd": 2 * len(exts), "bwd": 0}):
+                raise AssertionError(f"phase 8d gates failed: {summary}")
+
+        # 8e: asr and coco-ap over the two logs.
+        rc_asr, _, lines = run_cli(["asr", "--benign-log", logs["benign"], "--adv-log",
+                                    logs["adv"], "--target", "car"], launches, "asr", device=False)
+        rc_ap, _, ap_lines = run_cli(["coco-ap", "--log", logs["benign"], "--target-class", "car",
+                                      "--out-dir", work], launches, "coco-ap", device=False)
+        parsed = [len(load_preds(logs[t])) for t in ("benign", "adv")]
+        summary["asr"] = {"rc": rc_asr, "line": [x for _, x in lines], "cameras": parsed,
+                          "coco_ap_rc": rc_ap, "coco_ap": [x for _, x in ap_lines]}
+        log(f"  asr / coco-ap: {summary['asr']}")
+        if not (rc_asr == 0 and rc_ap == 0 and parsed == [len(exts)] * 2):
+            raise AssertionError(f"phase 8e gates failed: {summary['asr']}")
+
+        # 8f: recolor, combine, grouping-render, the convex hull.
+        for mode in ("single", "random", "grayscale", "sepia"):
+            out = os.path.join(work, f"recolor_{mode}.ply")
+            rc, _, _ = run_cli(["recolor", "--ply", ply, "--out", out, "--mode", mode],
+                               launches, "recolor")
+            sc = load_scene_ply(out, device=device)
+            if not (rc == 0 and sc.num_points == trained.num_points
+                    and float(sc.f_rest.abs().max()) == 0.0):
+                raise AssertionError(f"phase 8f: recolor {mode} failed (rc {rc})")
+        comb = os.path.join(work, "combined")
+        rc, wall, _ = run_cli(["combine", "--plys", ply, bg_ply, "--scene-dir", src,
+                               "--out-dir", comb, "--out-ply",
+                               os.path.join(work, "combined.ply")], launches, "combine")
+        shapes = [read_png(os.path.join(comb, f"render_{i:04d}.png")).shape
+                  for i in range(len(exts))]
+        summary["combine"] = {"rc": rc, "wall_s": wall, "launches": launches["combine"]}
+        if not (rc == 0 and shapes == [(TRAIN_SIZE, TRAIN_SIZE, 3)] * len(exts)
+                and launches["combine"]["fwd"] == len(exts)):
+            raise AssertionError(f"phase 8f: combine failed: {summary['combine']}, {shapes}")
+        grp = os.path.join(work, "grouping")
+        rc, wall, lines = run_cli(["grouping-render", "-m", model, "--out", grp,
+                                   *[o for o in common if o.startswith(("--config", "scene.source",
+                                                                        "sh_"))]],
+                                  launches, "grouping-render")
+        frames_out = sorted(os.listdir(os.path.join(grp, "renders")))
+        try:
+            import cv2  # noqa: F401
+            has_cv2 = True
+        except ImportError:
+            has_cv2 = False
+        video = [x for _, x in lines if "video:" in x]
+        summary["grouping_render"] = {"rc": rc, "wall_s": wall, "frames": len(frames_out),
+                                      "line": video, "opencv": has_cv2,
+                                      "pillow": importlib.util.find_spec("PIL") is not None}
+        if not (rc == 0 and len(frames_out) == len(exts)
+                and (has_cv2 or (video and video[0].endswith("(video: None)")))):
+            raise AssertionError(f"phase 8f: grouping-render failed: {summary['grouping_render']}")
+        xyz = trained.xyz.cpu().numpy()
+        t0 = time.perf_counter()
+        inside = points_inside_convex_hull(xyz, xyz[:, 0] < 0)
+        hull_s = time.perf_counter() - t0
+        summary["hull"] = {"s": hull_s, "points": len(xyz), "selected": int((xyz[:, 0] < 0).sum()),
+                           "inside": int(inside.sum())}
+        log(f"  recolor x4, combine {summary['combine']}, grouping-render "
+            f"{summary['grouping_render']}; hull {summary['hull']}")
+        # The hull of the x < 0 splats lies in x < 0.
+        if not (inside.any() and not inside[xyz[:, 0] >= 0].any()):
+            raise AssertionError(f"phase 8f: hull: {summary['hull']}")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 8 CLI on the card in {summary['phase_s']:.1f} s; launches {launches}")
+    return {"summary": summary, "launches": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -1675,21 +2013,27 @@ def main() -> int:
     cloak = phase_cloak(trained, device)
     log("phase 7 summary " + json.dumps({"train_vs_cpu": parity, "train": trained["summary"],
                                          "cloak": cloak}))
-    w16 = gathered["widths"][16]
     train_launches = {k: {"train": trained["summary"]["launches"][k],
                           "cloak": cloak["launches"][k]} for k in ("fwd", "bwd")}
+    del trained
+    torch.cuda.empty_cache()
+    cli = phase_cli(device)
+    log("phase 8 summary " + json.dumps(cli["summary"]))
+    cli_launches = {k: {cmd: n[k] for cmd, n in cli["launches"].items() if n[k]}
+                    for k in ("fwd", "bwd")}
+    w16 = gathered["widths"][16]
 
     source = "gsattack_torch/csrc/blend.cu"
     kernels = [
         {"name": "blend_fwd", "route": "cuda", "source": source,
          "replaces": "gsattack/ops/pallas_blend.py:157", "launches": main["launches"]["fwd"],
-         "training_launches": train_launches["fwd"],
+         "training_launches": train_launches["fwd"], "cli_launches": cli_launches["fwd"],
          **{k: shapes["fwd"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                            "bound_by")},
          "library_ms": None},
         {"name": "blend_bwd", "route": "cuda", "source": source,
          "replaces": "gsattack/ops/pallas_blend.py:233", "launches": main["launches"]["bwd"],
-         "training_launches": train_launches["bwd"],
+         "training_launches": train_launches["bwd"], "cli_launches": cli_launches["bwd"],
          **{k: shapes["bwd"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                            "bound_by")},
          "library_ms": None},

@@ -26,3 +26,9 @@ def silhouette_bbox(image_hwc: torch.Tensor) -> torch.Tensor:
     cols = torch.nonzero(mask.any(dim=0))[:, 0]
     box = torch.stack([cols.min(), rows.min(), cols.max() + 1, rows.max() + 1])
     return box.to(torch.int32)
+
+
+@torch.no_grad()
+def silhouette_bboxes(images_bhwc: torch.Tensor) -> torch.Tensor:
+    """`silhouette_bbox` of each image of a (B, H, W, 3) batch -> (B, 4)."""
+    return torch.stack([silhouette_bbox(img) for img in images_bhwc])

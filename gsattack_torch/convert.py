@@ -4,7 +4,9 @@ so that both packages can run the same scene, detector and cameras.
 The inputs are plain numpy: a `GaussianScene.params()` dict, a training
 state's arrays, the toy detector's HWIO weights, a detector's flax
 `variables` tree, and a camera's matrices. Every float array is converted to float32 at this
-boundary.
+boundary. The command line needs none of this: its inputs are files (PLYs,
+COLMAP text models, `classifier.npz`, detector `.npz` / `.pt` weights,
+YAML configs) that both packages read alike.
 
 The JAX detectors name their flax modules after the upstream torch
 modules, with each numeric path token merged onto the one before it

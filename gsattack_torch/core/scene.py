@@ -84,6 +84,14 @@ class GaussianScene:
             return self.replace(active_sh_degree=self.active_sh_degree + 1)
         return self
 
+    def removal_setup(self, remove_mask: torch.Tensor) -> "GaussianScene":
+        """Kill the masked points: the capacity stays, `alive` turns off."""
+        return self.replace(alive=self.alive & ~torch.as_tensor(remove_mask, device=self.device))
+
+    def keep_only(self, keep_mask: torch.Tensor) -> "GaussianScene":
+        """Kill every point outside the mask."""
+        return self.replace(alive=self.alive & torch.as_tensor(keep_mask, device=self.device))
+
     def concat(self, other: "GaussianScene") -> "GaussianScene":
         """Append another scene's points."""
         if self.max_sh_degree != other.max_sh_degree:

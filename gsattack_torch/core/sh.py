@@ -87,6 +87,13 @@ def _sh_basis(deg: int, dirs: torch.Tensor) -> list:
     return basis
 
 
+def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Evaluate SH of degree `deg` in [0, 4] on channel-major [..., C, K]
+    coefficients (the reference's `eval_sh` layout) at unit directions
+    [..., 3] -> [..., C] (before the +0.5 shift)."""
+    return eval_sh_features(deg, sh.transpose(-1, -2), dirs)
+
+
 def eval_sh_features(deg: int, features: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """Evaluate SH of degree `deg` in [0, 4] on coefficient-major
     [..., K, C] features at unit directions [..., 3] -> [..., C] (before
@@ -103,6 +110,12 @@ def eval_sh_features(deg: int, features: torch.Tensor, dirs: torch.Tensor) -> to
     for k in range(1, len(basis)):
         result = result + basis[k] * features[..., k, :]
     return result
+
+
+def sh_to_rgb(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Channel-major SH -> RGB clamped as the rasterizer clamps it:
+    max(eval + 0.5, 0), with no gradient where the clamp is active."""
+    return torch.clamp(eval_sh(deg, sh, dirs) + 0.5, min=0.0)
 
 
 def rgb_to_sh(rgb):

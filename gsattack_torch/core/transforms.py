@@ -35,6 +35,31 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1, row2], dim=-2)
 
 
+def build_scaling_rotation(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """L = R @ diag(s): (..., 3) scales and (..., 4) quaternions ->
+    (..., 3, 3)."""
+    return quat_to_rotmat(q) * s[..., None, :]
+
+
+def build_covariance(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Full 3D covariance Sigma = L L^T, (..., 3, 3)."""
+    L = build_scaling_rotation(s, q)
+    return L @ L.transpose(-1, -2)
+
+
+def strip_symmetric(cov: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) symmetric -> (..., 6) packed (xx, xy, xz, yy, yz, zz)."""
+    idx = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+    return torch.stack([cov[..., i, j] for i, j in idx], dim=-1)
+
+
+def unpack_symmetric(cov6: torch.Tensor) -> torch.Tensor:
+    """(..., 6) packed -> (..., 3, 3) symmetric matrix."""
+    xx, xy, xz, yy, yz, zz = cov6.unbind(-1)
+    return torch.stack([torch.stack([xx, xy, xz], -1), torch.stack([xy, yy, yz], -1),
+                        torch.stack([xz, yz, zz], -1)], dim=-2)
+
+
 def covariance6(s: torch.Tensor, q: torch.Tensor, modifier: float = 1.0) -> torch.Tensor:
     """Activated 3D covariance packed (xx, xy, xz, yy, yz, zz), computed
     elementwise as Sigma_ij = sum_k s_k^2 R_ik R_jk (the reference's form)."""

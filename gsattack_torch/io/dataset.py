@@ -8,8 +8,9 @@ seed-42 shuffle, camera-subset selection, and the resolution policy of
 the reference's `utils/camera_utils.py`.
 
 Ground-truth images load when the file exists; a missing or unreadable
-file gives None (the attack derives its boxes from renders). Reading an
-image needs Pillow, and a missing Pillow raises.
+file gives None (the attack derives its boxes from renders). PNGs are read
+by `io/png.py`; any other format (a COLMAP `.jpg`) needs Pillow, and a
+missing Pillow raises an ImportError that names the file.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import json
 import os
 import random
 import struct
+import zlib
 from dataclasses import dataclass
 from typing import Optional
 
@@ -27,6 +29,7 @@ from ..core.camera import CameraExtrinsics
 from ..core.sh import sh_to_rgb_dc
 from ..core.transforms import focal2fov, fov2focal, world_to_view_matrix
 from . import colmap as cm
+from . import png
 from .ply import read_points_ply, store_points_ply
 
 
@@ -53,24 +56,41 @@ def get_nerfpp_norm(cams: list[CameraExtrinsics]) -> dict:
     return {"translate": -center.flatten(), "radius": diagonal * 1.1}
 
 
+def read_image(path: str, mode: Optional[str] = None) -> np.ndarray:
+    """An image file as (H, W, C) uint8 in `mode`, "RGB" or "RGBA" as
+    Pillow's `convert` gives it; with `mode` None, "RGBA" when the image
+    carries alpha (an RGBA, LA or PA image, or a palette image with
+    transparency), else "RGB". PNG is decoded by `io/png.py`, any other
+    format by Pillow."""
+    if png.is_png(path):
+        px = png.read_png(path)
+        return png.convert(px, mode or ("RGBA" if px.shape[-1] in (2, 4) else "RGB"))
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"reading {path} needs Pillow: only PNG is read without it") from e
+    with Image.open(path) as im:
+        if mode is None:
+            alpha = im.mode in ("RGBA", "LA", "PA") or (
+                im.mode == "P" and "transparency" in im.info)
+            mode = "RGBA" if alpha else "RGB"
+        return np.asarray(im.convert(mode))
+
+
 def _load_image(path: str) -> Optional[np.ndarray]:
     """GT image as (H, W, 3) in [0, 1], or None when the file is missing or
     unreadable. An image with an alpha channel is multiplied by it (the
     reference's camera-level gt_alpha_mask)."""
     if not os.path.exists(path):
         return None
-    from PIL import Image
-
     try:
-        with Image.open(path) as im:
-            if im.mode in ("RGBA", "LA", "PA") or (
-                im.mode == "P" and "transparency" in im.info
-            ):
-                rgba = np.asarray(im.convert("RGBA"), np.float32) / 255.0
-                return rgba[..., :3] * rgba[..., 3:4]
-            return np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
-    except (OSError, ValueError):
+        px = read_image(path)
+    except (OSError, ValueError, zlib.error):
         return None
+    if px.shape[-1] == 4:
+        rgba = px.astype(np.float32) / 255.0
+        return rgba[..., :3] * rgba[..., 3:4]
+    return px.astype(np.float32) / 255.0
 
 
 def apply_resolution_policy(
@@ -194,10 +214,7 @@ def read_blender_cameras(
         img = None
         w = h = None
         if os.path.exists(img_path):
-            from PIL import Image
-
-            with Image.open(img_path) as im:
-                rgba = np.asarray(im.convert("RGBA"), np.float32) / 255.0
+            rgba = read_image(img_path, "RGBA").astype(np.float32) / 255.0
             bg = np.ones(3) if white_background else np.zeros(3)
             img = rgba[..., :3] * rgba[..., 3:4] + bg * (1 - rgba[..., 3:4])
             h, w = img.shape[:2]

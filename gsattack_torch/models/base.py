@@ -190,18 +190,49 @@ class Detector:
         is_targeted: bool = True,
         threshold: float = 0.5,
         gt_bbox: Optional[Sequence[float]] = None,
-    ) -> bool:
+        result_dict: bool = False,
+        image_id: Optional[int] = None,
+    ):
         """Predict, apply the success rule, and save the annotated image
-        when `path` is given."""
+        when `path` is given (Pillow draws it). Returns success, or with
+        `result_dict` (success, result): the COCO detections (`image_id`,
+        else -1), the class, name, confidence and COCO box of the
+        prediction closest to `gt_bbox`, the GT box as COCO xywh, the best
+        IoU and the two success terms."""
         dets = self.predict(image, threshold=threshold)
-        success, _ = evaluate_success(dets, gt_bbox, target, untarget, is_targeted)
+        success, info = evaluate_success(dets, gt_bbox, target, untarget, is_targeted)
         if path:
             save_detection_image(image, dets, path, self.class_names)
-        return success
+        if not result_dict:
+            return success
+        best_idx = info["closest_idx"]
+        coco = detections_to_coco(dets, image_id if image_id is not None else -1)
+        gt_fmt = None
+        if gt_bbox is not None:
+            x1, y1, x2, y2 = (float(v) for v in gt_bbox)
+            gt_fmt = [round(x1, 1), round(y1, 1), round(x2 - x1, 1), round(y2 - y1, 1)]
+        cls = info["closest_class"]
+        return success, {
+            "detections": coco,
+            "closest_class": cls,
+            "closest_class_name": self.resolve_label_index(cls) if cls is not None else None,
+            "closest_category_id": cls,
+            "closest_confidence": info["closest_confidence"],
+            "closest_bbox": (
+                coco[best_idx]["bbox"]
+                if (gt_bbox is not None and best_idx is not None and coco)
+                else None
+            ),
+            "gt_bbox": gt_fmt,
+            "best_iou": info["best_iou"],
+            "untarget_pred_not_exists": info["untarget_pred_not_exists"],
+            "target_pred_exists": info["target_pred_exists"],
+        }
 
 
 def save_detection_image(image, dets: Detections, path: str, class_names: list[str]) -> None:
-    """Draw boxes and labels on the image and save it."""
+    """Draw boxes and labels on the image and save it. Drawing the labels'
+    text needs Pillow, imported here."""
     from PIL import Image, ImageDraw
 
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

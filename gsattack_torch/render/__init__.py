@@ -11,8 +11,9 @@ from ..core.camera import Camera
 from ..core.scene import GaussianScene
 from ..ops.project import project
 from ..ops.raster import rasterize
+from .oracle import render_oracle
 
-__all__ = ["render"]
+__all__ = ["render", "render_oracle", "to_chw"]
 
 
 def render(
@@ -43,3 +44,8 @@ def render(
     out["radii"] = proj.radius
     out["visibility_filter"] = proj.radius > 0
     return out
+
+
+def to_chw(image_hwc: torch.Tensor) -> torch.Tensor:
+    """(H, W, C) -> (C, H, W), the reference's layout."""
+    return image_hwc.permute(2, 0, 1)

@@ -224,3 +224,26 @@ def test_loss_fell_compares_the_first_and_last_windows():
     assert not chip_smoke.loss_fell(falling[::-1])[0]
     fell, first, last = chip_smoke.loss_fell(np.r_[np.ones(50), np.full(100, 5.0), np.ones(50)])
     assert not fell and first == last == 1.0
+
+
+def test_cli_train_overrides_read_back_as_the_cut_values():
+    """Phase 8b's overrides: each cut reads back through the port's config
+    as the number it stands for, of its type (`5e-07` alone would be a
+    string), every default is configs/config.yaml's or `TrainConfig`'s,
+    and `cmd_train`'s `TrainConfig` fields all come from the config."""
+    import os
+
+    from gsattack_torch.train import TrainConfig
+    from gsattack_torch.utils.config import load_config
+
+    configs = os.path.join(chip_smoke.ROOT, "configs")
+    base = load_config(configs)
+    overrides = [f"{k}={chip_smoke.yaml_value(v)}"
+                 for k, (_, v) in chip_smoke.CLI_TRAIN_REDUCED.items()]
+    cfg = load_config(configs, overrides=overrides)
+    for name, (was, here) in chip_smoke.CLI_TRAIN_REDUCED.items():
+        assert base.get(name, getattr(TrainConfig, name)) == was, name
+        assert cfg[name] == here and type(cfg[name]) is type(here), name
+    assert chip_smoke.yaml_value(5e-07) == "5.0e-07" and chip_smoke.yaml_value(0.25) == "0.25"
+    # No opacity reset falls inside the run (module comment).
+    assert base.opacity_reset_interval > chip_smoke.CLI_TRAIN_ITERS

@@ -226,11 +226,15 @@ def test_load_image_matches_and_needs_pillow(tmp_path, monkeypatch):
         assert (got is None) == (want is None), name
         if want is not None:
             np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
-    # Without Pillow an existing image raises instead of loading as None;
-    # a missing file still gives None.
+    # Without Pillow the PNGs load all the same (io/png.py); a file that
+    # is no PNG raises, naming itself, instead of loading as None; a
+    # missing file still gives None.
+    want = {n: jds._load_image(str(tmp_path / "images" / n)) for n in ("a.png", "b.png", "c.png")}
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError):
-        tds._load_image(str(tmp_path / "images" / "a.png"))
+    for name, img in want.items():
+        np.testing.assert_array_equal(tds._load_image(str(tmp_path / "images" / name)), img)
+    with pytest.raises(ImportError, match="d.png"):
+        tds._load_image(str(tmp_path / "images" / "d.png"))
     assert tds._load_image(str(tmp_path / "images" / "missing.png")) is None
 
 
