@@ -119,7 +119,8 @@ Phases (any failure raises and exits non-zero):
      launches), `grouping-render` (9 frames; no video without OpenCV),
      and the convex hull of the x < 0 splats, timed. `predict-batch` and
      `write_images=true` stay out: their annotated images are drawn by
-     Pillow, which the card's machine does not have.
+     Pillow, which the port does not depend on (phase 8's summary says
+     whether the card's machine has it, and OpenCV).
 
 Prints the card's line and the kernels as one JSON line, then the ok
 line last.
