@@ -4,9 +4,10 @@
 against their plain PyTorch version, drives the DAGGER attack end to end,
 drives the row gather's micro-bench, runs the detector zoo at full width,
 with DAGGER against each main detector, trains a 3DGS scene and CLOAKs
-it at full width, and drives the command line (train, attack,
-render-eval, asr, coco-ap, recolor, combine, grouping-render) through
-files.
+it at full width, drives the command line (train, attack, render-eval,
+asr, coco-ap, recolor, combine, grouping-render) through files, runs the
+attack and the trainer over a (views, splats) device mesh of processes on
+the card, and drives the profiler and the viewer.
 
     python3 chip_smoke.py
 
@@ -121,6 +122,32 @@ Phases (any failure raises and exits non-zero):
      `write_images=true` stay out: their annotated images are drawn by
      Pillow, which the port does not depend on (phase 8's summary says
      whether the card's machine has it, and OpenCV).
+
+  9. The (views, splats) mesh (`gsattack_torch.parallel`), each rank a
+     spawned process on this card that loads phase 1's kernel library.
+     (a) 4 gloo ranks of a (2, 2) mesh, all on cuda:0 (gloo takes the
+     CUDA tensors and copies them through host memory): the sharded render
+     of phase 4's scene (100k splats, SH3, 4 views at 800x800, bands
+     planned from measured pair costs) against the unsharded one on the
+     card, RGB and 19 channels (images 1e-5 abs, every attribute gradient
+     1e-3 max rel), then phase 4's `run_dagger` on the mesh against phase
+     4's run (losses 1e-4 rel, f_dc 1e-5 abs) with its PGD it/s. (b) 2
+     gloo ranks of a (1, 2) mesh: `Trainer(mesh)` for the first 150 steps
+     of phase 7b's schedule (one densify pass) against `Trainer()` on the
+     card (losses 1e-3 max rel), then phase 7a's gates from `Trainer()`'s
+     final state: one step's loss (1e-5 rel) and gradients (1e-3 max
+     rel), and a densify pass at a lower-quartile threshold that grows
+     the capacity (states equal within 1e-6); train it/s of both. (c) One
+     NCCL rank, a (1, 1) mesh: phase 6's `run_dagger` against
+     yolov8n@640 on the mesh (losses 1e-4 rel against phase 6's), its PGD
+     it/s. Each rank's launch counts are set to 0 just before its main
+     path and read just after; every rank must launch both blend kernels.
+ 10. `utils/profiling.py` and `utils/viewer.py`: two PGD iterations of
+     phase 4's scene under `trace_to`, each stage an `annotate` span and a
+     `StageTimer` stage (the trace names every span and holds kernel
+     events; the summary lists every stage); `serve_scene` in a daemon
+     thread answers two `request_frame` calls over localhost with frames
+     equal to `render` of the request's camera in RGB8.
 
 Prints the card's line and the kernels as one JSON line, then the ok
 line last.
@@ -861,23 +888,30 @@ def stage_breakdown(scene, cams, det, pairs, bg, boxes, reps: int = 3) -> dict:
     return ms
 
 
+def main_attack_config(out_dir: str):
+    """Phase 4's `run_dagger` settings (phase 9a runs them on the mesh)."""
+    from gsattack_torch.attack import AttackConfig
+
+    return AttackConfig(
+        epsilon=5.0, alpha=0.5, max_iters=8, batch_size=4, add_cams=4, target=2,
+        attributes=("color",), norm="l2", eval_every=1, attack_conf_thresh=0.99,
+        pairs_per_gaussian=-1, chunk=CHUNK, max_chunks=MAX_CHUNKS, output_dir=out_dir,
+    )
+
+
 def phase_main_path(scene, cams, ext, pairs, device):
     """Phase 4: run_dagger with the counters read around it, then the
     end-to-end rates on the same 4-view batch."""
     import numpy as np
     import torch
 
-    from gsattack_torch.attack import AttackConfig, render_views, run_dagger
+    from gsattack_torch.attack import render_views, run_dagger
     from gsattack_torch.models import ToyDetector
     from gsattack_torch.ops import blend, gather
 
     det = ToyDetector(num_classes=8, seed=0, device=device)
     with tempfile.TemporaryDirectory() as out_dir:
-        cfg = AttackConfig(
-            epsilon=5.0, alpha=0.5, max_iters=8, batch_size=4, add_cams=4, target=2,
-            attributes=("color",), norm="l2", eval_every=1, attack_conf_thresh=0.99,
-            pairs_per_gaussian=-1, chunk=CHUNK, max_chunks=MAX_CHUNKS, output_dir=out_dir,
-        )
+        cfg = main_attack_config(out_dir)
         # run_dagger logs one "Iteration:" line per PGD iteration, after the
         # loss has come back to the host.
         lines = []
@@ -945,7 +979,7 @@ def phase_main_path(scene, cams, ext, pairs, device):
     stages = stage_breakdown(scene, cams, det, pairs, bg, boxes)
     return {"launches": launches, "losses": losses.tolist(), "rates": rates,
             "iterations": len(losses), "pairs_per_gaussian": pairs, "profile": profile,
-            "stages_ms": stages}
+            "stages_ms": stages, "f_dc": res.scene.f_dc.cpu()}
 
 
 def detector_heads(name: str, det, images):
@@ -1076,6 +1110,19 @@ def detector_on_card(name: str, det, imgs, boxes) -> dict:
             "weights": n_params, "loss_bwd_profile": detector_profile}
 
 
+def detector_attack_config(name: str, pairs: int, out_dir: str):
+    """Phase 6's `run_dagger` settings for detector `name` (phase 9c runs
+    yolov8's on the mesh)."""
+    from gsattack_torch.attack import AttackConfig
+
+    return AttackConfig(
+        epsilon=5.0, alpha=0.5, max_iters=DETECTOR_PGD_ITERS + 1, batch_size=4,
+        add_cams=4, target=2, attributes=("color",), norm="l2", eval_every=1,
+        attack_conf_thresh=0.99, pairs_per_gaussian=pairs, chunk=CHUNK,
+        max_chunks=MAX_CHUNKS, output_dir=out_dir, detector_name=name,
+    )
+
+
 def phase_detectors(scene, cams, ext, pairs, device) -> dict:
     """Phase 6: the detector zoo at full width on the main path's scene.
     (a) yolov8 (n, imgsz 640, 80 classes), detectron2 (R50-FPN, 80 classes)
@@ -1088,7 +1135,7 @@ def phase_detectors(scene, cams, ext, pairs, device) -> dict:
     import numpy as np
     import torch
 
-    from gsattack_torch.attack import AttackConfig, render_views, run_dagger
+    from gsattack_torch.attack import render_views, run_dagger
     from gsattack_torch.attack.silhouette import silhouette_bbox
     from gsattack_torch.models import load_detector
     from gsattack_torch.ops import blend
@@ -1104,12 +1151,7 @@ def phase_detectors(scene, cams, ext, pairs, device) -> dict:
         det = load_detector(name, seed=0, device=device)
         row = detector_on_card(name, det, imgs, boxes)
         with tempfile.TemporaryDirectory() as out_dir:
-            cfg = AttackConfig(
-                epsilon=5.0, alpha=0.5, max_iters=DETECTOR_PGD_ITERS + 1, batch_size=4,
-                add_cams=4, target=2, attributes=("color",), norm="l2", eval_every=1,
-                attack_conf_thresh=0.99, pairs_per_gaussian=pairs, chunk=CHUNK,
-                max_chunks=MAX_CHUNKS, output_dir=out_dir, detector_name=name,
-            )
+            cfg = detector_attack_config(name, pairs, out_dir)
             lines = []
             blend.FWD_LAUNCHES = blend.BWD_LAUNCHES = 0
             res = run_dagger(scene, [ext], det, cfg,
@@ -1573,6 +1615,7 @@ def phase_train(device) -> dict:
                           what="training steps")
     stages = train_stage_breakdown(trainer, cams[0], gt_view)
     return {"init": init, "cams": cams, "gts": train_gts, "cfg": cfg, "extent": extent,
+            "exts": [exts[i] for i in train_idx],
             "summary": {
                 "train_it_s": train_it_s, "launches": launches, "knn_ms": knn_ms,
                 "densify_events": events,
@@ -1970,6 +2013,411 @@ def phase_cli(device) -> dict:
     return {"summary": summary, "launches": launches}
 
 
+# Phase 9: the (views, splats) mesh on the card, its ranks as processes.
+MESH_GLOO_SHAPE = (2, 2)  # 9a: 4 gloo ranks on the one card
+MESH_TRAIN_SHAPE = (1, 2)  # 9b
+MESH_TRAIN_ITERS = 150
+GATE_MESH_LOSS = 1e-4
+GATE_MESH_F_DC = 1e-5  # abs, as the JAX package's test_dagger_with_mesh
+GATE_MESH_TRAJECTORY = 1e-3  # 9b's 150 losses, mesh against Trainer(), max rel
+
+
+def launch_counts() -> dict:
+    from gsattack_torch.ops import blend, gather
+
+    return {"fwd": blend.FWD_LAUNCHES, "bwd": blend.BWD_LAUNCHES,
+            "gather": gather.GATHER_LAUNCHES}
+
+
+def zero_launch_counts() -> None:
+    from gsattack_torch.ops import blend, gather
+
+    blend.FWD_LAUNCHES = blend.BWD_LAUNCHES = gather.GATHER_LAUNCHES = 0
+
+
+def iteration_rate(stamps) -> float:
+    """Iterations a second between the first and the last of a run's
+    per-iteration host times (the first iteration, with its warm-up, left
+    out)."""
+    return (len(stamps) - 1) / (stamps[-1] - stamps[0])
+
+
+def mesh_render_errors(mesh, scene, cams, pairs, band_tiles, objects: bool) -> dict:
+    """Phase 9a: the sharded render of the whole scene (`shard_scene`, so
+    that the whole gradient comes back on every rank) against the
+    unsharded one on this rank's card, loss mean(render^2): RGB only, or
+    with the 16 object channels blended and returned (19 channels)."""
+    import torch
+
+    from gsattack_torch.attack import render_views
+    from gsattack_torch.ops.project import project, stack_projections
+    from gsattack_torch.ops.raster import rasterize_views
+    from gsattack_torch.parallel import render_views_sharded, shard_scene
+
+    bg = torch.zeros(3, device=scene.device)
+
+    def unsharded(sc):
+        if not objects:
+            return render_views(sc, cams, bg, pairs, MAX_CHUNKS, CHUNK, with_objects=False)
+        proj = stack_projections([project(sc, cams.view_at(i)) for i in range(cams.num_views)])
+        out = rasterize_views(proj, cams.width, cams.height, bg, pairs, CHUNK, MAX_CHUNKS)
+        return torch.cat([out["render"], out["render_object"]], -1)
+
+    def sharded(sc):
+        return render_views_sharded(shard_scene(sc, mesh), cams, bg, mesh, pairs, CHUNK,
+                                    MAX_CHUNKS, band_tiles=band_tiles, with_objects=objects,
+                                    return_objects=objects)
+
+    got = {}
+    for name, fn in (("unsharded", unsharded), ("mesh", sharded)):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in scene.params().items()}
+        img = fn(scene.with_params(leaves))
+        grads = torch.autograd.grad((img ** 2).mean(), list(leaves.values()), allow_unused=True)
+        got[name] = (img.detach(), dict(zip(leaves, grads)))
+    (img, grads), (ref, ref_grads) = got["mesh"], got["unsharded"]
+    return {"channels": int(img.shape[-1]), "image_max_abs_err": float((img - ref).abs().max()),
+            "grad_max_rel_err": {k: max_rel(grads[k], g) for k, g in ref_grads.items()
+                                 if g is not None and float(g.abs().max()) > 0}}
+
+
+def rank_9a(info) -> dict:
+    """Phase 9a on one gloo rank of the (2, 2) mesh: the sharded render
+    (RGB and 19 channels) against the unsharded one, then phase 4's
+    `run_dagger` on the mesh, the launch counts set to 0 just before and
+    read just after."""
+    import torch
+    import torch.distributed as dist
+
+    from gsattack_torch.attack import run_dagger
+    from gsattack_torch.models import ToyDetector
+    from gsattack_torch.ops.project import project
+    from gsattack_torch.parallel import make_mesh, measure_tile_row_costs, plan_bands
+
+    device = info["device"]
+    mesh = make_mesh(MESH_GLOO_SHAPE, "cuda")
+    scene, ext, cams, pairs = main_shapes(device)
+    with torch.no_grad():
+        costs = sum(measure_tile_row_costs(project(scene, cams.view_at(i)), cams.width,
+                                           cams.height, pairs) for i in range(cams.num_views))
+    bands = plan_bands(costs, MESH_GLOO_SHAPE[1])
+    out = {"bands": bands, "renders": {
+        "rgb": mesh_render_errors(mesh, scene, cams, pairs, bands, objects=False),
+        "19ch": mesh_render_errors(mesh, scene, cams, pairs, bands, objects=True)}}
+    det = ToyDetector(num_classes=8, seed=0, device=device)
+    lines = []
+    with tempfile.TemporaryDirectory() as out_dir:
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        res = run_dagger(scene, [ext], det, main_attack_config(out_dir), mesh=mesh,
+                         log=lambda line: lines.append((time.perf_counter(), line)))
+        torch.cuda.synchronize()
+        out["launches"] = launch_counts()
+    out["losses"] = list(res.losses)
+    if dist.get_rank() == 0:
+        out["lines"] = [line for _, line in lines if line.startswith("[Info]")]
+        out["pgd_it_s"] = iteration_rate([t for t, line in lines if line.startswith("Iteration:")])
+        out["f_dc"] = res.scene.f_dc.cpu()
+    return out
+
+
+def rank_9b(info, path: str) -> dict:
+    """Phase 9b on one gloo rank of the (1, 2) mesh: `Trainer(mesh)` for
+    phase 7b's first 150 steps (the launch counts set to 0 just before and
+    read just after), then phase 7a's gates from `Trainer()`'s final state
+    (written by the parent to `path`): one step's loss and gradients, and
+    a densify pass that grows the capacity."""
+    import torch
+
+    from gsattack_torch.parallel import make_mesh
+    from gsattack_torch.train import Trainer
+
+    device = info["device"]
+    mesh = make_mesh(MESH_TRAIN_SHAPE, "cuda")
+    ref = torch.load(path, weights_only=False)  # written by this script's parent process
+    cams = [e.build(device=device) for e in ref["exts"]]
+    gts = [g.to(device) for g in ref["gts"]]
+    trainer = Trainer(ref["init"], ref["cfg"], cameras_extent=ref["extent"], mesh=mesh,
+                      device=device)
+    stamps = []
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    trainer.fit(cams, gts, iterations=ref["cfg"].iterations,
+                log=lambda i, l: stamps.append((time.perf_counter(), l)))
+    torch.cuda.synchronize()
+    out = {"launches": launch_counts(), "losses": [l for _, l in stamps],
+           "train_it_s": iteration_rate([t for t, _ in stamps[1:]]),
+           "alive": int(trainer.full_state().scene.alive.sum())}
+
+    trainer.set_full_state(ref["state"].to(device))
+    loss, grads, mean2d, _ = trainer.loss_and_grads(cams[0], gts[0])
+    block = lambda t: t.chunk(MESH_TRAIN_SHAPE[1])[info["process_id"]]  # noqa: E731
+    want = ref["step"]
+    grad_err = {k: max_rel(g.cpu(), block(want["grads"][k])) for k, g in grads.items()
+                if float(want["grads"][k].abs().max()) > 0}
+    grad_err["mean2d"] = max_rel(mean2d.cpu(), block(want["mean2d"]))
+    out["step"] = {"loss_rel_err": abs(float(loss) - want["loss"]) / abs(want["loss"]),
+                   "grad_max_rel_err": grad_err}
+
+    trainer.cfg.densify_grad_threshold = ref["densify"]["threshold"]
+    trainer.maybe_densify(trainer.cfg.densify_from_iter, noise=ref["densify"]["noise"].to(device))
+    got = trainer.full_state().to("cpu")
+    equal, err = states_differ(got, ref["densify"]["state"])
+    out["densify"] = {"states_equal": equal, "max_abs_err": err,
+                      "capacity": [ref["state"].scene.num_points, got.scene.num_points]}
+    return out
+
+
+def rank_9c(info, pairs: int) -> dict:
+    """Phase 9c on the one NCCL rank of a (1, 1) mesh: phase 6's
+    `run_dagger` against yolov8n@640, the launch counts set to 0 just
+    before and read just after."""
+    import torch
+
+    from gsattack_torch.attack import run_dagger
+    from gsattack_torch.models import load_detector
+    from gsattack_torch.parallel import make_mesh
+
+    device = info["device"]
+    mesh = make_mesh((1, 1), "cuda")
+    scene, ext, _, _ = main_shapes(device)
+    det = load_detector("yolov8", seed=0, device=device)
+    lines = []
+    with tempfile.TemporaryDirectory() as out_dir:
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        res = run_dagger(scene, [ext], det, detector_attack_config("yolov8", pairs, out_dir),
+                         mesh=mesh, log=lambda line: lines.append((time.perf_counter(), line)))
+        torch.cuda.synchronize()
+    return {"launches": launch_counts(), "losses": list(res.losses), "backend": info["backend"],
+            "pgd_it_s": iteration_rate([t for t, l in lines if l.startswith("Iteration:")])}
+
+
+def mesh_train_reference(train_inputs: dict, device, path: str) -> dict:
+    """Phase 9b's reference on this process's card: `Trainer()` for the
+    same 150 steps, then from its final state one step (loss, gradients,
+    mean2d gradient) and a densify pass at a threshold at the lower
+    quartile of the gradients, with fixed draws, so that the children
+    overflow the free slots; all of it saved to `path` for the ranks."""
+    import dataclasses
+
+    import torch
+
+    from gsattack_torch.train import Trainer
+    from gsattack_torch.train.densify import N_SPLIT
+
+    cfg = dataclasses.replace(train_inputs["cfg"], iterations=MESH_TRAIN_ITERS)
+    rank_cfg = dataclasses.replace(cfg)  # the threshold below is the reference's own
+    exts, gts = train_inputs["exts"], [g.to(device) for g in train_inputs["gts"]]
+    cams = [e.build(device=device) for e in exts]
+    trainer = Trainer(train_inputs["init"], cfg, cameras_extent=train_inputs["extent"],
+                      device=device)
+    stamps = []
+    trainer.fit(cams, gts, iterations=cfg.iterations,
+                log=lambda i, l: stamps.append((time.perf_counter(), l)))
+    torch.cuda.synchronize()
+    state = trainer.state
+    loss, grads, mean2d, _ = trainer.loss_and_grads(cams[0], gts[0])
+    st = trainer.state
+    hot = st.stats.xyz_gradient_accum / st.stats.denom.clamp(min=1.0)
+    thr = float(torch.quantile(hot[st.stats.denom > 0], 0.25))
+    noise = torch.randn((N_SPLIT, st.scene.num_points, 3),
+                        generator=torch.Generator().manual_seed(9))
+    trainer.cfg.densify_grad_threshold = thr
+    trainer.maybe_densify(cfg.densify_from_iter, noise=noise.to(device))
+    ref = {"exts": exts, "gts": [g.cpu() for g in gts], "init": train_inputs["init"],
+           "cfg": rank_cfg, "extent": train_inputs["extent"],
+           "state": state.to("cpu"),
+           "step": {"loss": float(loss), "grads": {k: v.cpu() for k, v in grads.items()},
+                    "mean2d": mean2d.cpu()},
+           "densify": {"threshold": thr, "noise": noise, "state": trainer.state.to("cpu")}}
+    torch.save(ref, path)
+    return {"losses": [l for _, l in stamps],
+            "train_it_s": iteration_rate([t for t, _ in stamps[1:]]),
+            "alive": int(state.scene.alive.sum()), "threshold": thr}
+
+
+def phase_mesh(main: dict, detectors: dict, train_inputs: dict, device) -> dict:
+    """Phase 9: the (views, splats) mesh on the card, each rank a spawned
+    process (`gsattack_torch.parallel.run_local`) that loads the kernel
+    library phase 1 built. (a) 4 gloo ranks of a (2, 2) mesh, all on
+    cuda:0: the sharded render of phase 4's scene, 4 views at 800x800, RGB
+    and 19 channels, against the unsharded one (images 1e-5 abs,
+    gradients 1e-3 max rel) and phase 4's `run_dagger` on the mesh against
+    phase 4's (losses 1e-4 rel, f_dc 1e-5 abs); (b) 2 gloo ranks of a
+    (1, 2) mesh: `Trainer(mesh)` for phase 7b's first 150 steps (one
+    densify pass) against `Trainer()` (losses 1e-3 max rel), then phase
+    7a's gates from `Trainer()`'s final state; (c) one NCCL rank, a (1, 1)
+    mesh: phase 6's `run_dagger` against yolov8n@640 (losses 1e-4 rel
+    against phase 6's). Each rank must launch both blend kernels."""
+    import numpy as np
+    import torch
+
+    from gsattack_torch.parallel import run_local
+
+    t0 = time.perf_counter()
+    summary, failed = {}, []
+    a = run_local(rank_9a, 4, backend="gloo", device="cuda", threads=2, timeout=900)
+    ref_losses, ref_f_dc = np.asarray(main["losses"]), main["f_dc"]
+    renders = {k: {"image_max_abs_err": max(r["renders"][k]["image_max_abs_err"] for r in a),
+                   "grad_max_rel_err": max(max(r["renders"][k]["grad_max_rel_err"].values())
+                                           for r in a)} for k in ("rgb", "19ch")}
+    loss_err = max(float(np.max(np.abs(np.asarray(r["losses"]) - ref_losses) / np.abs(ref_losses)))
+                   for r in a)
+    f_dc_err = float((a[0]["f_dc"] - ref_f_dc).abs().max())
+    summary["9a"] = {"mesh": MESH_GLOO_SHAPE, "backend": "gloo", "bands": a[0]["bands"],
+                     "renders": renders, "losses": a[0]["losses"], "loss_max_rel_err": loss_err,
+                     "f_dc_max_abs_err": f_dc_err, "pgd_it_s": a[0]["pgd_it_s"],
+                     "launches": [r["launches"] for r in a]}
+    log(f"phase 9a {MESH_GLOO_SHAPE} mesh, 4 gloo ranks on cuda:0 (gloo takes the CUDA tensors "
+        f"and copies them through host memory itself): bands {a[0]['bands']}; render vs "
+        f"unsharded {renders}; run_dagger {len(a[0]['losses'])} PGD iterations, losses max rel "
+        f"{loss_err:.2e} and f_dc max abs {f_dc_err:.2e} against phase 4's; PGD "
+        f"{a[0]['pgd_it_s']:.3f} it/s (phase 4: {main['rates']['pgd_it_s']:.3f}); "
+        f"{a[0]['lines']}; launches by rank {summary['9a']['launches']}")
+    if not all(v["image_max_abs_err"] <= GATE_IMAGE and v["grad_max_rel_err"] <= GATE_GRAD
+               for v in renders.values()):
+        failed.append("9a render")
+    if not (len(a[0]["losses"]) == len(ref_losses) and loss_err <= GATE_MESH_LOSS
+            and f_dc_err <= GATE_MESH_F_DC):
+        failed.append("9a run_dagger")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train_reference.pt")
+        plain = mesh_train_reference(train_inputs, device, path)
+        b = run_local(rank_9b, 2, args=(path,), backend="gloo", device="cuda", threads=4,
+                      timeout=900)
+    traj_err = max(float(np.max(np.abs(np.asarray(r["losses"]) - plain["losses"])
+                                / np.abs(plain["losses"]))) for r in b)
+    step = {"loss_rel_err": max(r["step"]["loss_rel_err"] for r in b),
+            "grad_max_rel_err": {k: max(r["step"]["grad_max_rel_err"][k] for r in b)
+                                 for k in b[0]["step"]["grad_max_rel_err"]}}
+    summary["9b"] = {"mesh": MESH_TRAIN_SHAPE, "backend": "gloo", "steps": MESH_TRAIN_ITERS,
+                     "trajectory_loss_max_rel_err": traj_err, "alive": [plain["alive"]]
+                     + [r["alive"] for r in b], "step": step, "densify": b[0]["densify"],
+                     "train_it_s": b[0]["train_it_s"], "plain_train_it_s": plain["train_it_s"],
+                     "launches": [r["launches"] for r in b]}
+    log(f"phase 9b {MESH_TRAIN_SHAPE} mesh, 2 gloo ranks: Trainer(mesh) {MESH_TRAIN_ITERS} steps "
+        f"at {b[0]['train_it_s']:.3f} it/s (Trainer() {plain['train_it_s']:.3f} it/s), losses max "
+        f"rel {traj_err:.2e}, alive {summary['9b']['alive']}; from Trainer()'s final state: "
+        f"step {step}, densify (threshold {plain['threshold']:.3e}) {b[0]['densify']}; launches "
+        f"by rank {summary['9b']['launches']}")
+    if not (traj_err <= GATE_MESH_TRAJECTORY and step["loss_rel_err"] <= GATE_TRAIN_LOSS
+            and max(step["grad_max_rel_err"].values()) <= GATE_GRAD
+            and all(r["densify"]["states_equal"] and r["densify"]["max_abs_err"] <= GATE_DENSIFY
+                    and r["densify"]["capacity"][1] > r["densify"]["capacity"][0] for r in b)):
+        failed.append("9b")
+
+    (c,) = run_local(rank_9c, 1, args=(main["pairs_per_gaussian"],), backend="nccl",
+                     device="cuda", threads=8, timeout=900)
+    ref = np.asarray(detectors["yolov8"]["pgd_losses"])
+    c_err = float(np.max(np.abs(np.asarray(c["losses"]) - ref) / np.abs(ref)))
+    summary["9c"] = {"mesh": (1, 1), "backend": c["backend"], "losses": c["losses"],
+                     "loss_max_rel_err": c_err, "pgd_it_s": c["pgd_it_s"],
+                     "launches": [c["launches"]]}
+    log(f"phase 9c (1, 1) mesh, one {c['backend']} rank: run_dagger against yolov8n@640, losses "
+        f"{c['losses']} max rel {c_err:.2e} against phase 6's; PGD {c['pgd_it_s']:.3f} it/s "
+        f"(phase 6: {detectors['yolov8']['pgd_it_s']:.3f}); launches {c['launches']}")
+    if not (len(c["losses"]) == len(ref) and c_err <= GATE_MESH_LOSS):
+        failed.append("9c")
+
+    no_launch = [f"{k} rank {i}" for k in ("9a", "9b", "9c")
+                 for i, n in enumerate(summary[k]["launches"]) if not (n["fwd"] and n["bwd"])]
+    if no_launch:
+        failed.append(f"blend kernels not launched: {no_launch}")
+    summary["phase_s"] = time.perf_counter() - t0
+    if failed:
+        raise AssertionError(f"phase 9 gates failed: {failed}: {summary}")
+    return summary
+
+
+def phase_profile_viewer(scene, cams, pairs, device) -> dict:
+    """Phase 10: `utils/profiling.py` and `utils/viewer.py` on the card.
+    Two of phase 4's loss-and-step iterations (toy head) under `trace_to`,
+    each stage in an `annotate` span and a `StageTimer` stage that waits
+    for the card: the trace names every span and has kernel events, the
+    timer's summary lists every stage. Then `serve_scene` on phase 4's
+    scene in a daemon thread answers two `request_frame` calls over
+    localhost (two of the 800x800 views): each frame equals `render` of
+    the request's camera quantised to RGB8."""
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+
+    from gsattack_torch.attack import render_views
+    from gsattack_torch.attack.pgd import pgd_attack_step
+    from gsattack_torch.models import ToyDetector
+    from gsattack_torch.render import render
+    from gsattack_torch.utils.profiling import TRACE_FILE, StageTimer, annotate, trace_to
+    from gsattack_torch.utils.viewer import camera_from_request, request_frame, serve_scene
+
+    det = ToyDetector(num_classes=8, seed=0, device=device)
+    bg = torch.zeros(3, device=device)
+    boxes = np.tile(np.array([[200, 200, 600, 600]], np.float32), (cams.num_views, 1))
+    originals = scene.params()
+    timer, spans = StageTimer(), ("pgd/render", "pgd/loss", "pgd/backward", "pgd/step")
+    state = scene
+    with tempfile.TemporaryDirectory() as d:
+        with trace_to(d):
+            for _ in range(2):
+                leaves = {k: v.detach().requires_grad_(True) for k, v in state.params().items()}
+                out = []
+                with annotate(spans[0]), timer.stage(spans[0], block_on=out):
+                    out.append(render_views(state.with_params(leaves), cams, bg, pairs,
+                                            MAX_CHUNKS, CHUNK))
+                with annotate(spans[1]), timer.stage(spans[1], block_on=out):
+                    out.append(det.loss(out[0], 2, boxes))
+                with annotate(spans[2]), timer.stage(spans[2], block_on=out):
+                    grads = dict(zip(leaves, torch.autograd.grad(out[1], list(leaves.values()),
+                                                                 allow_unused=True)))
+                    out.append(list(g for g in grads.values() if g is not None))
+                grads = {k: torch.zeros_like(leaves[k]) if g is None else g
+                         for k, g in grads.items()}
+                with annotate(spans[3]), timer.stage(spans[3], block_on=out):
+                    state = pgd_attack_step(state, grads, originals, 0.5, 5.0)
+                    out.append(state.f_dc)
+        with open(os.path.join(d, TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    summary = timer.summary()
+    log(f"phase 10 trace of 2 PGD iterations: {len(events)} events, {kernels} kernel events, "
+        f"spans {[s for s in spans if s in names]}; StageTimer:\n" + summary)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ready = threading.Event()
+    server = threading.Thread(target=serve_scene, args=(scene,), daemon=True,
+                              kwargs={"port": port, "max_requests": 2, "ready_event": ready})
+    server.start()
+    if not ready.wait(60):
+        raise AssertionError("phase 10: the viewer did not listen")
+    frames, diffs = [], []
+    for vi in range(2):
+        cam = cams.view_at(vi)
+        req = {"width": cam.width, "height": cam.height, "fovx": 2 * math.atan(float(cam.tanfovx)),
+               "fovy": 2 * math.atan(float(cam.tanfovy)), "view": cam.view.cpu().tolist()}
+        t0 = time.perf_counter()
+        got = request_frame(req, port=port)
+        frames.append(time.perf_counter() - t0)
+        with torch.no_grad():
+            img = render(scene, camera_from_request(req, device), bg)["render"]
+        want = (torch.clamp(img, 0, 1) * 255).to(torch.uint8).cpu().numpy()
+        diffs.append(int(np.abs(got.astype(int) - want.astype(int)).max()))
+    server.join(timeout=60)
+    log(f"  viewer on localhost: 2 frames of {cams.width}x{cams.height} in "
+        f"{[round(t, 3) for t in frames]} s, max RGB8 difference from render {diffs}")
+    checks = {"spans traced": all(s in names for s in spans), "kernel events": kernels > 0,
+              "timer summary": all(s in summary for s in spans),
+              "frames equal": diffs == [0, 0], "server done": not server.is_alive()}
+    if not all(checks.values()):
+        raise AssertionError(f"phase 10 gates failed: {[k for k, v in checks.items() if not v]}")
+    return {"trace_events": len(events), "kernel_events": kernels, "frame_s": frames,
+            "stage_s": dict(timer.totals)}
+
+
 def main() -> int:
     try:
         import torch
@@ -2006,7 +2454,7 @@ def main() -> int:
     shapes = phase_main_shapes(scene, cams, pairs, _tiles)
     main = phase_main_path(scene, cams, ext, pairs, device)
     gathered = phase_gather(device)
-    phase_detectors(scene, cams, ext, pairs, device)
+    detectors = phase_detectors(scene, cams, ext, pairs, device)
     del scene, cams
     torch.cuda.empty_cache()
     parity = phase_train_parity(device)
@@ -2016,12 +2464,23 @@ def main() -> int:
                                          "cloak": cloak}))
     train_launches = {k: {"train": trained["summary"]["launches"][k],
                           "cloak": cloak["launches"][k]} for k in ("fwd", "bwd")}
+    train_inputs = {"init": trained["init"].to("cpu"), "exts": trained["exts"],
+                    "gts": [g.cpu() for g in trained["gts"]], "cfg": trained["cfg"],
+                    "extent": trained["extent"]}
     del trained
     torch.cuda.empty_cache()
     cli = phase_cli(device)
     log("phase 8 summary " + json.dumps(cli["summary"]))
     cli_launches = {k: {cmd: n[k] for cmd, n in cli["launches"].items() if n[k]}
                     for k in ("fwd", "bwd")}
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(main, detectors, train_inputs, device)
+    log(f"phase 9 summary ({smi}) " + json.dumps(mesh))
+    mesh_launches = {k: {p: [n[k] for n in mesh[p]["launches"]] for p in ("9a", "9b", "9c")}
+                     for k in ("fwd", "bwd", "gather")}
+    scene, ext, cams, pairs = main_shapes(device)
+    tools = phase_profile_viewer(scene, cams, pairs, device)
+    log("phase 10 summary " + json.dumps(tools))
     w16 = gathered["widths"][16]
 
     source = "gsattack_torch/csrc/blend.cu"
@@ -2029,18 +2488,21 @@ def main() -> int:
         {"name": "blend_fwd", "route": "cuda", "source": source,
          "replaces": "gsattack/ops/pallas_blend.py:157", "launches": main["launches"]["fwd"],
          "training_launches": train_launches["fwd"], "cli_launches": cli_launches["fwd"],
+         "mesh_launches": mesh_launches["fwd"],
          **{k: shapes["fwd"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                            "bound_by")},
          "library_ms": None},
         {"name": "blend_bwd", "route": "cuda", "source": source,
          "replaces": "gsattack/ops/pallas_blend.py:233", "launches": main["launches"]["bwd"],
          "training_launches": train_launches["bwd"], "cli_launches": cli_launches["bwd"],
+         "mesh_launches": mesh_launches["bwd"],
          **{k: shapes["bwd"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                            "bound_by")},
          "library_ms": None},
         {"name": "gather_rows", "route": "cuda", "source": "gsattack_torch/csrc/gather.cu",
          "replaces": "gsattack/ops/pallas_gather.py:35", "launches": main["launches"]["gather"],
          "micro_bench_launches": gathered["micro_bench_launches"],
+         "mesh_launches": mesh_launches["gather"],
          "max_abs_err": max(r["max_abs_err"] for r in gathered["widths"].values()),
          **{k: w16[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
          "by_width": {str(w): {k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}

@@ -24,8 +24,12 @@ Layout mirrors `gsattack/`:
             regulariser), densify/prune over a fixed capacity
   evals/    ASR and COCO AP over render logs, the adversarial-render
             evaluation, the Gaussian-Grouping renders
+  parallel/ the (views, splats) device mesh over torch.distributed: the
+            sharded render (tile bands, collectives with their
+            gradients), `run_local` for the ranks of one host
   utils/    the YAML config (its own reader, no PyYAML), image losses and
-            metrics, the learning-rate schedule
+            metrics, the learning-rate schedule, trace spans and a stage
+            timer (`profiling.py`), the network viewer (`viewer.py`)
   models/   detector protocol, NMS, success rule; the detector zoo (toy,
             YOLO v3u / v5u / v8 / v11, Faster R-CNN R50-FPN, DETR) behind
             `load_detector`, with the upstream checkpoint loaders
@@ -34,7 +38,8 @@ Layout mirrors `gsattack/`:
             library (`png.py`)
   convert   numpy weights/state from `gsattack` into this package (scenes,
             cameras, training states, every detector's flax variables)
-  scripts/  micro-benches (`python -m gsattack_torch.scripts.micro_gather`)
+  scripts/  micro-benches (`python -m gsattack_torch.scripts.micro_gather`),
+            the blend A/B, the mesh on several cards (`mesh_bench`)
 
 Importing the package needs neither CUDA nor a compiler: the kernel library
 is built and loaded on the first launch on a CUDA tensor. Constructors take

@@ -15,6 +15,7 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.camera import Camera
 from ..core.scene import GaussianScene
@@ -75,16 +76,25 @@ def run_cloak(
 ) -> tuple[GaussianScene, list[torch.Tensor]]:
     """Poison the selected views (each against the silhouette box of its
     clean image) and retrain from `init_scene` on `device`. Returns (the
-    retrained scene, the poisoned images)."""
+    retrained scene, the poisoned images).
+
+    With a (views, splats) `DeviceMesh`, every rank calls this with the
+    same arguments: each poisons the views, rank 0's poisoned images go
+    to every rank, the retraining runs sharded (`Trainer(mesh=...)`) and
+    only rank 0 logs."""
     train_cfg = train_cfg or TrainConfig()
-    check_supported(train_cfg, mesh)
+    check_supported(train_cfg)
     dev = resolve_device(device)
+    if mesh is not None and dist.get_rank() != 0:
+        log = lambda *_: None  # noqa: E731
     images = [image_tensor(g, dev) for g in gt_images]
     poisoned = []
     for vi in cloak_cfg.poison_view_indices:
         bbox = silhouette_bbox(images[vi]).cpu().numpy()
         log(f"[cloak] poisoning view {vi} (bbox {bbox.tolist()})")
         images[vi] = poison_image(images[vi], detector, bbox, cloak_cfg)
+        if mesh is not None:
+            dist.broadcast(images[vi], src=0)
         poisoned.append(images[vi])
     log(f"[cloak] retraining for {iterations} iterations on {len(images)} views")
     trainer = Trainer(init_scene, train_cfg, cameras_extent=cameras_extent, mesh=mesh,

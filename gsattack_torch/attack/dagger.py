@@ -9,7 +9,10 @@ checkpoint/resume to `.npz`, the benign silhouette pass, and the
 adversarial PLY on completion (`{output_dir}/{scene}_adv_{detector}.ply`).
 
 The blend runs where the scene's tensors are: the CUDA kernels on a card,
-the plain version on the CPU.
+the plain version on the CPU. With a (views, splats) `DeviceMesh`
+(`parallel/`), every rank calls `run_dagger` with the whole scene; the
+attack then runs on this rank's splat block and view block, and the
+result is gathered whole on every rank.
 """
 
 from __future__ import annotations
@@ -21,12 +24,21 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.camera import Camera, CameraExtrinsics, stack_cameras
 from ..core.scene import GaussianScene
 from ..models.base import Detector
 from ..ops.project import project, stack_projections
-from ..ops.raster import auto_pairs_per_gaussian, rasterize_views
+from ..ops.raster import TILE, auto_pairs_per_gaussian, rasterize_views
+from ..parallel.mesh import SPLATS_AXIS, VIEWS_AXIS, axis_size
+from ..parallel.shard import (
+    measure_tile_row_costs,
+    plan_bands,
+    render_sharded,
+    render_views_sharded,
+)
+from ..parallel.shardings import gather_scene, shard_points, shard_scene
 from ..render import render
 from .pgd import pgd_attack_step
 from .silhouette import silhouette_bbox
@@ -99,10 +111,24 @@ def render_views(
     chunk: int = 64,
     rect_candidates: int = 0,
     with_objects: bool = True,
+    mesh=None,
+    band_tiles: tuple | None = None,
 ) -> torch.Tensor:
     """Multi-view render of a stacked camera -> (B, H, W, 3): the scene is
     projected once per view, and the batch is binned and blended in one
-    launch (`rasterize_views`)."""
+    launch (`rasterize_views`).
+
+    With a (views, splats) `mesh`, every rank passes the whole scene and
+    the same batch: the render runs sharded (`parallel/shard.py`) on this
+    rank's block of the scene, padded with dead splats when the splats
+    axis does not divide it, and the whole batch comes back on every
+    rank, as does the whole scene's gradient. A batch that does not
+    divide the views axis renders with views replicated."""
+    if mesh is not None:
+        return render_views_sharded(
+            shard_scene(scene, mesh), cams, bg, mesh, pairs_per_gaussian, chunk, max_chunks,
+            rect_candidates, band_tiles, with_objects,
+        )
     proj = stack_projections([project(scene, cams.view_at(i)) for i in range(cams.num_views)])
     return rasterize_views(
         proj, cams.width, cams.height, bg,
@@ -121,12 +147,7 @@ def expand_viewpoints(
     return out
 
 
-def _check_supported(cfg: AttackConfig, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_dagger(mesh=...) shards over a device mesh, not ported yet "
-            "(ROADMAP.md Queue 1 item 13, multi-GPU)"
-        )
+def _check_supported(cfg: AttackConfig) -> None:
     for field in ("pairs_budget", "compact_budget", "tier_split", "heavy_budget"):
         if getattr(cfg, field) != 0:
             raise NotImplementedError(
@@ -153,12 +174,20 @@ def run_dagger(
 ) -> AttackResult:
     """Run the DAGGER PGD attack on `scene` (the attacked splats), on the
     scene's device. `frozen_scene` (optional) is overlaid for the success
-    evaluation render."""
-    _check_supported(cfg, mesh)
+    evaluation render.
+
+    With a (views, splats) `DeviceMesh`, every rank calls this with the
+    same arguments. The scene, its originals and the mask shard over
+    splats (padded with dead splats to a multiple of the axis), each
+    camera batch over views; the tile bands are planned from measured
+    pair costs; only rank 0 logs and writes files; the returned scene is
+    the whole attacked scene on every rank."""
+    _check_supported(cfg)
     detector.load_model()
     dev = scene.device
-    originals = {k: v.detach().clone() for k, v in scene.params().items()}
-    mask = None if attack_mask is None else torch.as_tensor(attack_mask, device=dev)
+    lead = mesh is None or dist.get_rank() == 0  # the rank that logs and writes
+    if not lead:
+        log = lambda *_: None  # noqa: E731
 
     cameras = list(cameras)
     if cfg.start_cam is not None or cfg.end_cam is not None:
@@ -180,6 +209,11 @@ def run_dagger(
 
     bg = torch.full((3,), 1.0 if cfg.white_background else 0.0, device=dev)
     black = torch.zeros(3, device=dev)
+    if mesh is not None and batch_size % axis_size(mesh, VIEWS_AXIS):
+        log(
+            f"[Info] The view batch of {batch_size} does not divide the views axis "
+            f"({axis_size(mesh, VIEWS_AXIS)}): views replicated, splats still sharded."
+        )
 
     if cfg.rect_candidates < 0:
         cfg = dataclasses.replace(cfg, rect_candidates=0)
@@ -197,22 +231,70 @@ def run_dagger(
         cfg = dataclasses.replace(cfg, pairs_per_gaussian=pairs)
         log(f"[Info] Auto-sized pairs_per_gaussian = {pairs}")
 
+    # Pair-balanced tile bands for the sharded render: per-tile-row pair
+    # costs over a sample of the attack views, split by the exact
+    # linear-partition planner, so that a skewed scene (the object low in
+    # the frame, an empty sky) does not leave most ranks waiting behind the
+    # busiest equal-height band.
+    band_tiles = None
+    if mesh is not None:
+        n_splats = axis_size(mesh, SPLATS_AXIS)
+        if 1 < n_splats <= -(-built[0].height // TILE):
+            sample = built[:: max(1, len(built) // 4)][:4]
+            with torch.no_grad():
+                costs = sum(
+                    measure_tile_row_costs(project(scene, c), c.width, c.height,
+                                           cfg.pairs_per_gaussian, cfg.rect_candidates)
+                    for c in sample
+                )
+            band_tiles = plan_bands(costs, n_splats)
+            log(f"[Info] Pair-balanced tile bands: {band_tiles}")
+
+    # The attacked parameters: the whole scene's, or with a mesh this
+    # rank's splat block (its L2 step norms summed over the splats group).
+    full_points = scene.num_points
+    base = scene if mesh is None else shard_scene(scene, mesh)
+    norm_group = None if mesh is None else mesh.get_group(SPLATS_AXIS)
+    originals = {k: v.detach().clone() for k, v in base.params().items()}
+    mask = None if attack_mask is None else torch.as_tensor(attack_mask, device=dev)
+    if mask is not None and mesh is not None:
+        mask = shard_points(mask, mesh)
+
     def views_render(sc, cams, background):
+        """The batch from this rank's parameters `sc`."""
+        if mesh is not None:
+            return render_views_sharded(
+                sc, cams, background, mesh, cfg.pairs_per_gaussian, cfg.chunk,
+                cfg.max_chunks, cfg.rect_candidates, band_tiles,
+            )
         return render_views(
             sc, cams, background, cfg.pairs_per_gaussian, cfg.max_chunks,
             cfg.chunk, cfg.rect_candidates,
         )
 
+    def whole(params):
+        """The attacked scene, whole, from this rank's parameters."""
+        sc = base.with_params(params)
+        return sc if mesh is None else gather_scene(sc, mesh, full_points)
+
     # ---- benign pass: silhouette GT boxes on a black background
     gt_bboxes, n_trunc = [], 0
     with torch.no_grad():
         for c in built:
-            out = render(
-                scene, c, black, pairs_per_gaussian=cfg.pairs_per_gaussian,
-                chunk=cfg.chunk, max_chunks=cfg.max_chunks,
-                rect_candidates=cfg.rect_candidates,
-            )
-            gt_bboxes.append(silhouette_bbox(out["render"]).cpu().numpy())
+            if mesh is None:
+                out = render(
+                    scene, c, black, pairs_per_gaussian=cfg.pairs_per_gaussian,
+                    chunk=cfg.chunk, max_chunks=cfg.max_chunks,
+                    rect_candidates=cfg.rect_candidates,
+                )
+                img = out["render"]
+            else:
+                out = render_sharded(
+                    base, stack_cameras([c]), black, mesh, cfg.pairs_per_gaussian,
+                    cfg.chunk, cfg.max_chunks, cfg.rect_candidates, band_tiles,
+                )
+                img = out["render"][0]
+            gt_bboxes.append(silhouette_bbox(img).cpu().numpy())
             n_trunc += int(out["num_truncated_pairs"])
     gt_bboxes = np.stack(gt_bboxes)
     if n_trunc:
@@ -226,7 +308,7 @@ def run_dagger(
 
     def attack_step(params, cams, bboxes):
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        sc = scene.with_params(leaves)
+        sc = base.with_params(leaves)
         loss = detector.loss(views_render(sc, cams, bg), target_idx, bboxes)
         grads = dict(zip(leaves, torch.autograd.grad(
             loss, list(leaves.values()), allow_unused=True)))
@@ -235,12 +317,13 @@ def run_dagger(
         }
         with torch.no_grad():
             sc = pgd_attack_step(
-                scene.with_params(params), grads, originals, cfg.alpha,
+                base.with_params(params), grads, originals, cfg.alpha,
                 cfg.epsilon, cfg.attributes, cfg.norm, cfg.is_targeted, mask,
+                norm_group=norm_group,
             )
         return sc.params(), loss.detach()
 
-    params = {k: v.detach().clone() for k, v in scene.params().items()}
+    params = {k: v.detach().clone() for k, v in base.params().items()}
     pending = list(range(len(built)))
     pending_boxes = list(gt_bboxes)
     losses: list[float] = []
@@ -257,6 +340,8 @@ def run_dagger(
             params = {
                 k[2:]: torch.as_tensor(z[k], device=dev) for k in z.files if k.startswith("p_")
             }
+            if mesh is not None:
+                params = shard_scene(scene.with_params(params), mesh).params()
             pending = [int(v) for v in z["pending"]]
             pending_boxes = list(z["pending_boxes"])
             start_it = int(z["iteration"]) + 1
@@ -264,10 +349,13 @@ def run_dagger(
         log(f"[resume] iteration {start_it}, {len(pending)} views pending")
 
     def save_ckpt(iteration):
+        full = whole(params).params()  # every rank takes part in the gather
+        if not lead:
+            return
         os.makedirs(cfg.checkpoint_dir, exist_ok=True)
         np.savez(
             ckpt_path,
-            **{f"p_{k}": v.detach().cpu().numpy() for k, v in params.items()},
+            **{f"p_{k}": v.detach().cpu().numpy() for k, v in full.items()},
             pending=np.asarray(pending, np.int64),
             pending_boxes=np.asarray(pending_boxes if pending_boxes else np.zeros((0, 4))),
             iteration=iteration,
@@ -295,15 +383,21 @@ def run_dagger(
         log(f"Iteration: {it}, Loss: {losses[-1]}")
 
         if (it % cfg.eval_every) == 0:
-            adv = scene.with_params(params)
-            eval_scene = adv.concat(frozen_scene) if frozen_scene is not None else adv
             with torch.no_grad():
-                eval_imgs = views_render(eval_scene, cams, bg).cpu().numpy()
+                if frozen_scene is None:
+                    eval_imgs = views_render(base.with_params(params), cams, bg)
+                else:
+                    eval_imgs = render_views(
+                        whole(params).concat(frozen_scene), cams, bg, cfg.pairs_per_gaussian,
+                        cfg.max_chunks, cfg.chunk, cfg.rect_candidates, mesh=mesh,
+                        band_tiles=band_tiles,
+                    )
+            eval_imgs = eval_imgs.cpu().numpy()
             successes = []
             for j, vi in enumerate(cur):
                 path = (
                     os.path.join(cfg.preds_dir, f"render_it{it}_c{j}.png")
-                    if cfg.preds_dir
+                    if cfg.preds_dir and lead
                     else None
                 )
                 ok = detector.predict_and_save(
@@ -316,6 +410,12 @@ def run_dagger(
                     gt_bbox=cur_boxes[j],
                 )
                 successes.append(bool(ok))
+            if mesh is not None:
+                # Rank 0's decisions, so that every rank leaves the loop at
+                # the same iteration.
+                box = [successes]
+                dist.broadcast_object_list(box, src=0)
+                successes = box[0]
             n_ok = sum(successes)
             log(f"Successes: {n_ok}/{len(cur)}")
             if n_ok >= len(cur) - (1 if cfg.batch_mode and len(cur) > 1 else 0):
@@ -332,14 +432,15 @@ def run_dagger(
         if ckpt_path and it > 0 and it % cfg.checkpoint_every == 0:
             save_ckpt(it)
 
-    final = scene.with_params(params)
+    final = whole(params)
     ply_path = None
     if all_done and cfg.save_ply:
         from ..io.ply import save_scene_ply
 
         ply_path = os.path.join(cfg.output_dir, f"{cfg.scene_name}_adv_{cfg.detector_name}.ply")
         log(f"saving gaussians to {ply_path}")
-        save_scene_ply(final, ply_path)
+        if lead:
+            save_scene_ply(final, ply_path)
     return AttackResult(
         scene=final,
         success=all_done,

@@ -8,6 +8,10 @@
     semantics of torch's `renorm(p=2, dim=0, maxnorm=eps)`.
   * masked variants update only the points of a boolean mask.
 
+On a device mesh each rank holds a block of points; `norm_group` (the
+splats group) then sums the squared gradient over the blocks, so that the
+l2 step's norm is the whole tensor's.
+
 Each step is `(param, grad, original) -> param` and returns a new tensor.
 """
 
@@ -18,6 +22,7 @@ from typing import Iterable, Optional
 import torch
 
 from ..core.scene import GaussianScene
+from ..parallel.collectives import all_reduce
 
 # Attribute names of the reference -> GaussianScene fields.
 ATTR_MAP = {
@@ -62,9 +67,13 @@ def l2_step(
     epsilon: float,
     targeted: bool = True,
     mask: Optional[torch.Tensor] = None,
+    norm_group=None,
 ) -> torch.Tensor:
     sign = -1.0 if targeted else 1.0
-    gnorm = torch.linalg.vector_norm(grad.reshape(-1))
+    if norm_group is None:
+        gnorm = torch.linalg.vector_norm(grad.reshape(-1))
+    else:
+        gnorm = torch.sqrt(all_reduce(grad.square().sum(), norm_group))
     pos = gnorm > 0
     eta = sign * alpha * grad / torch.where(pos, gnorm, torch.ones_like(gnorm))
     new = param + torch.where(pos, eta, torch.zeros_like(eta))
@@ -89,17 +98,20 @@ def pgd_attack_step(
     norm: str = "l2",
     targeted: bool = True,
     mask: Optional[torch.Tensor] = None,
+    norm_group=None,
 ) -> GaussianScene:
     """One PGD step over the selected attribute groups (any of color /
     position / rotation / opacity / scaling / objects). `originals` is the
-    parameter dict taken at the start of the attack."""
+    parameter dict taken at the start of the attack; `norm_group` as in
+    the module docstring."""
     step = {"linf": linf_step, "l2": l2_step}[norm]
+    kw = {"norm_group": norm_group} if norm == "l2" else {}
     params = scene.params()
     for attr in attributes:
         for field in ATTR_MAP[attr]:
             params[field] = step(
                 params[field], grads[field], originals[field], alpha, epsilon,
-                targeted=targeted, mask=mask,
+                targeted=targeted, mask=mask, **kw,
             )
     return scene.with_params(params)
 

@@ -20,24 +20,33 @@ commands, options and config overrides.
 
 Every command that builds tensors takes `--device` (default `cuda`), and
 raises when no card is present unless `--device cpu` is given. The
-renders run on the blend's CUDA kernels on a card. `use_mesh=true` (the
-multi-device attack and trainer) is not ported.
+renders run on the blend's CUDA kernels on a card.
+
+`use_mesh=true` runs `attack` and `train` over a (views, splats) device
+mesh (`parallel/`), one process a device:
+
+  torchrun --nproc-per-node N -m gsattack_torch.cli attack use_mesh=true
+
+joins the ranks over NCCL, each on `cuda:LOCAL_RANK` (gloo with
+`--device cpu`). `mesh_shape` sets the (views, splats) shape; null gives
+the views axis the gcd of the step's view batch and the device count.
+Outside `torchrun` the mesh is one device. Only rank 0 prints and writes.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import math
 import os
 import sys
 from typing import Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from .device import resolve_device
 from .utils.config import load_config
-
-_MESH = "ROADMAP.md Queue 1 item 13, multi-GPU"
 
 
 def _parser(prog: str, device: bool = True) -> argparse.ArgumentParser:
@@ -146,9 +155,39 @@ def _detector_kwargs(cfg):
     return kw
 
 
-def _check_no_mesh(cfg) -> None:
-    if cfg.get("use_mesh"):
-        raise NotImplementedError(f"use_mesh=true shards over a device mesh, not ported ({_MESH})")
+def mesh_shape_from_cfg(cfg, n_devices: int, views_hint: int = 1):
+    """The (views, splats) shape `use_mesh` / `mesh_shape` ask for (None
+    when use_mesh is off): `mesh_shape` when given, else the views axis is
+    the largest divisor of the device count that also divides
+    `views_hint` (the step's view batch: 1 for training and for attacks
+    outside batch mode) and the rest go to splats."""
+    if not cfg.get("use_mesh"):
+        return None
+    shape = cfg.get("mesh_shape")
+    if shape:
+        return tuple(int(x) for x in shape)
+    views = math.gcd(max(int(views_hint), 1), n_devices)
+    return views, n_devices // views
+
+
+def _mesh_from_cfg(cfg, label, device, views_hint=1):
+    """(mesh, device) for a command: (None, device) when use_mesh is off;
+    else this process joins the process group (NCCL on a card, gloo on
+    the CPU; `torchrun`'s environment or a group of one) and the mesh of
+    `mesh_shape_from_cfg` is built, with this rank's device. `main` leaves
+    the group it joined."""
+    if not cfg.get("use_mesh"):
+        return None, device
+    from .parallel import initialize_distributed, make_mesh
+
+    info = initialize_distributed("nccl" if device.type == "cuda" else "gloo", device=device)
+    mesh = make_mesh(mesh_shape_from_cfg(cfg, info["devices"], views_hint), device.type)
+    logging.info("%s mesh: %s", label, dict(zip(mesh.mesh_dim_names, mesh.shape)))
+    return mesh, info["device"]
+
+
+def _rank0(mesh) -> bool:
+    return mesh is None or dist.get_rank() == 0
 
 
 def cmd_attack(argv):
@@ -160,7 +199,10 @@ def cmd_attack(argv):
     args = ap.parse_intermixed_args(argv)
     device = resolve_device(args.device)
     cfg = load_config(args.config_dir, overrides=args.overrides)
-    _check_no_mesh(cfg)
+    # The PGD view batch is batch_size views only in batch_mode; otherwise
+    # the attack steps one view at a time and the views axis is 1.
+    eff_batch = int(cfg.batch_size) if cfg.batch_mode else 1
+    mesh, device = _mesh_from_cfg(cfg, "attack", device, views_hint=max(eff_batch, 1))
 
     detector = load_detector(cfg.scene.detector_name, device=device, **_detector_kwargs(cfg))
     detector.load_model()
@@ -209,12 +251,14 @@ def cmd_attack(argv):
         tier_split=cfg.get("tier_split", 0),
         heavy_budget=cfg.get("heavy_budget", 0),
     )
-    res = run_dagger(scene, views, detector, acfg, frozen_scene=frozen, attack_mask=mask)
-    print(
-        f"attack finished: success={res.success} iters={res.iterations} "
-        f"final_loss={res.losses[-1] if res.losses else None} "
-        f"ply={res.adv_ply_path}"
-    )
+    res = run_dagger(scene, views, detector, acfg, frozen_scene=frozen, attack_mask=mask,
+                     mesh=mesh)
+    if _rank0(mesh):
+        print(
+            f"attack finished: success={res.success} iters={res.iterations} "
+            f"final_loss={res.losses[-1] if res.losses else None} "
+            f"ply={res.adv_ply_path}"
+        )
     return 0 if res.success else 1
 
 
@@ -384,7 +428,8 @@ def cmd_train(argv):
     args = ap.parse_intermixed_args(argv)
     device = resolve_device(args.device)
     cfg = load_config(args.config_dir, overrides=args.overrides)
-    _check_no_mesh(cfg)
+    # Training steps one camera at a time: the views axis is 1.
+    mesh, device = _mesh_from_cfg(cfg, "train", device, views_hint=1)
 
     info = load_scene_info(
         cfg.scene.source_path,
@@ -455,19 +500,20 @@ def cmd_train(argv):
         )
         final, _ = run_cloak(
             scene, cams, gts, det, ccfg, train_cfg=tcfg, iterations=iters,
-            cameras_extent=info.nerf_normalization["radius"], device=device,
+            cameras_extent=info.nerf_normalization["radius"], mesh=mesh, device=device,
         )
     else:
         trainer = Trainer(
             scene, tcfg, cameras_extent=info.nerf_normalization["radius"],
-            classifier=classifier, device=device,
+            classifier=classifier, mesh=mesh, device=device,
         )
         final = trainer.fit(
             cams, gts, iterations=iters,
-            log=lambda i, l: (i % 100 == 0) and print(f"iter {i}: loss {l:.5f}"),
+            log=lambda i, l: (i % 100 == 0 and _rank0(mesh)) and print(f"iter {i}: loss {l:.5f}"),
         )
-    out = save_scene_iteration(final, cfg.scene.model_path or "output/trained", iters)
-    print(f"saved {out}")
+    if _rank0(mesh):
+        out = save_scene_iteration(final, cfg.scene.model_path or "output/trained", iters)
+        print(f"saved {out}")
     return 0
 
 
@@ -616,7 +662,12 @@ def main(argv: Optional[list] = None):
     if cmd not in COMMANDS:
         print(f"unknown command {cmd!r}; known: {', '.join(COMMANDS)}")
         return 2
-    return COMMANDS[cmd](argv[1:])
+    joined = dist.is_initialized()
+    try:
+        return COMMANDS[cmd](argv[1:])
+    finally:
+        if not joined and dist.is_initialized():  # the group a `use_mesh` command joined
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -139,6 +139,7 @@ def bin_gaussians(
     conic: torch.Tensor | None = None,
     opacity: torch.Tensor | None = None,
     rect_candidates: int = 0,
+    tile_rows: tuple[int, int] | None = None,
 ) -> TileBins:
     """Depth-sorted per-tile index lists for one view.
 
@@ -147,7 +148,15 @@ def bin_gaussians(
     `rect_candidates` (>= pairs_per_gaussian, needs conic+opacity)
     enumerates the rect at that many cells, packs the survivors left, and
     keeps the first `pairs_per_gaussian`; 0 disables it. Candidates past a
-    capacity are counted in `num_culled_pairs`."""
+    capacity are counted in `num_culled_pairs`.
+
+    `tile_rows` = (r0, r1) bins a band: the whole image's binning kept to
+    tile rows r0 <= row < r1, its tiles numbered from the band's first
+    (rows past the image are empty). Each gaussian's candidate cells and
+    the sort key's depth precision are the whole image's, so that a band's
+    tiles list the same gaussians in the same order as the whole image's,
+    the pairs-per-gaussian cap and depth ties included. `num_culled_pairs`
+    is then still the whole image's count."""
     mean2d, depth, radius = mean2d.detach(), depth.detach(), radius.detach()
     do_ellipse = conic is not None and opacity is not None
     if do_ellipse:
@@ -177,6 +186,11 @@ def bin_gaussians(
         valid = skey[:, :c] < c_rect
 
     nbits_tile = max(int(math.ceil(math.log2(num_tiles + 2))), 1)
+    if tile_rows is not None:
+        r0, r1 = tile_rows
+        valid = valid & (tile_id >= r0 * tiles_x) & (tile_id < r1 * tiles_x)
+        tile_id = tile_id - r0 * tiles_x
+        num_tiles = (r1 - r0) * tiles_x
     depth_bits = 32 - nbits_tile
     q = torch.clamp(depth / (depth + 1.0), 0.0, 1.0 - 1e-7)
     dq = torch.clamp(
@@ -333,11 +347,12 @@ def bin_views(
     height: int,
     pairs_per_gaussian: int = 32,
     rect_candidates: int = 0,
+    tile_rows: tuple[int, int] | None = None,
 ) -> TileBins:
     """Bin every view of a view-stacked projection into one flat pair list:
     gauss_idx indexes the flattened (V*N) gaussians, the tile ranges
     (V, tiles) are offsets into the list, and the culled count is summed
-    over views."""
+    over views. `tile_rows` as in `bin_gaussians`."""
     v, n = proj.mean2d.shape[:2]
     idx, starts, ends, culled = [], [], [], []
     offset = 0
@@ -345,7 +360,7 @@ def bin_views(
         b = bin_gaussians(
             proj.mean2d[vi], proj.depth[vi], proj.radius_tight[vi], width,
             height, pairs_per_gaussian, conic=proj.conic[vi],
-            opacity=proj.opacity[vi], rect_candidates=rect_candidates,
+            opacity=proj.opacity[vi], rect_candidates=rect_candidates, tile_rows=tile_rows,
         )
         idx.append(b.gauss_idx + vi * n)
         starts.append(b.tile_start + offset)
@@ -370,10 +385,17 @@ def rasterize_views(
     max_chunks: int = 16,
     with_objects: bool = True,
     rect_candidates: int = 0,
+    tile_rows: tuple[int, int] | None = None,
 ) -> dict:
     """Multi-view rasterization of a view-stacked projection (leading view
     dimension on every field): each view is binned, and the whole batch
     blends in one launch over a (tiles, views) grid.
+
+    `tile_rows` = (r0, r1) renders the band of tile rows r0 <= row < r1 of
+    the (width, height) image, (r1 - r0) * 16 rows high: binned as the
+    whole image's (`bin_gaussians`), blended with the screen means moved
+    up by the band's first row (a translation leaves EWA splatting
+    unchanged).
 
     `with_objects=False` blends RGB only and returns `render_object`
     zero-filled. Returns `render` (V, H, W, 3), `render_object`
@@ -382,9 +404,14 @@ def rasterize_views(
     tiles_x, tiles_y = _tiles(width, height)
     channels = torch.cat([proj.color, proj.obj], dim=-1) if with_objects else proj.color
     n_ch = channels.shape[-1]
-    bins = bin_views(proj, width, height, pairs_per_gaussian, rect_candidates)
+    bins = bin_views(proj, width, height, pairs_per_gaussian, rect_candidates, tile_rows)
+    mean2d = proj.mean2d
+    if tile_rows is not None:
+        tiles_y = tile_rows[1] - tile_rows[0]
+        height = tiles_y * TILE
+        mean2d = mean2d - mean2d.new_tensor([0.0, float(tile_rows[0] * TILE)])
     img, T = blend_tiles(
-        bins.gauss_idx, bins.tile_start, bins.tile_end, proj.mean2d,
+        bins.gauss_idx, bins.tile_start, bins.tile_end, mean2d,
         proj.conic, proj.opacity, channels, tiles_x, tiles_y, chunk, max_chunks,
     )
     img = img[:, :height, :width]

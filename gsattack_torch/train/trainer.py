@@ -11,6 +11,14 @@ reset and the SH degree schedule run on the host between steps.
 The blend runs where the scene's tensors are: the CUDA kernels on a card,
 the plain version on the CPU. Hyperparameter defaults are the reference's
 `OptimizationParams` and `configs/config.yaml`.
+
+With a (views, splats) `DeviceMesh` (`parallel/`), every rank builds the
+`Trainer` from the same whole scene. The per-point state (parameters,
+Adam's moments, densify stats) is then this rank's block of the splats
+axis, its capacity a multiple of the axis; a step renders through
+`parallel.shard.render_sharded`. Densify gathers the state, runs the
+single-device pass on every rank with the same draws, and keeps the
+rank's block, so that the slot allocator stays global.
 """
 
 from __future__ import annotations
@@ -20,11 +28,16 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..core.camera import Camera
+from ..core.camera import Camera, stack_cameras
 from ..core.scene import PARAM_NAMES, GaussianScene
 from ..device import resolve_device
 from ..io.checkpoint import save_checkpoint
+from ..parallel.collectives import all_gather, gather
+from ..parallel.mesh import SPLATS_AXIS, axis_size
+from ..parallel.shard import render_sharded
+from ..parallel.shardings import gather_scene, pad_to_multiple, shard_points, shard_scene
 from ..render import render
 from ..utils.losses import dssim_l1_loss, expon_lr_schedule
 from .densify import (
@@ -184,12 +197,7 @@ def adam_update(params: dict, grads: dict, mu: dict, nu: dict, count: int, lrs: 
     return new_p, new_mu, new_nu, count
 
 
-def check_supported(cfg: TrainConfig, mesh=None) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "Trainer(mesh=...) shards training over a device mesh, not ported yet "
-            "(ROADMAP.md Queue 1 item 13, multi-GPU)"
-        )
+def check_supported(cfg: TrainConfig) -> None:
     for field in ("pairs_budget", "compact_budget", "tier_split", "heavy_budget"):
         if getattr(cfg, field) != 0:
             raise NotImplementedError(
@@ -210,7 +218,8 @@ def image_tensor(image, device: torch.device) -> torch.Tensor:
 
 class Trainer:
     """Host loop around the training step, on `device` ("cuda" unless the
-    caller asks for the CPU)."""
+    caller asks for the CPU). With a `mesh`, `state` is this rank's block
+    and `full_state()` the whole state (see the module docstring)."""
 
     def __init__(
         self,
@@ -221,7 +230,7 @@ class Trainer:
         mesh=None,
         device: str | torch.device = "cuda",
     ):
-        check_supported(cfg, mesh)
+        check_supported(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.cameras_extent = cameras_extent
@@ -231,19 +240,63 @@ class Trainer:
             else None
         )
         capacity = int(scene.num_points * cfg.capacity_headroom)
+        self.mesh = mesh
+        self._splats = 1
+        if mesh is not None:
+            # Even blocks: capacity rounds up to the splats axis, here and
+            # in every growth.
+            self._splats = axis_size(mesh, SPLATS_AXIS)
+            self._splats_group = mesh.get_group(SPLATS_AXIS)
+            capacity = pad_to_multiple(capacity, self._splats)
         scene = scene.to(self.device).pad_to(capacity)
         params = scene.params()
         self.lr_tree = make_lr_tree(cfg)
-        self.state = TrainState(
+        self.state = self._shard_state(TrainState(
             scene=scene,
             mu={k: torch.zeros_like(v) for k, v in params.items()},
             nu={k: torch.zeros_like(v) for k, v in params.items()},
             count=0,
             stats=DensifyStats.zeros(capacity, self.device),
             step=0,
-        )
+        ))
         # The largest count of pairs past a tile's blend cap in any step.
         self.max_truncated_pairs = torch.zeros((), dtype=torch.int64, device=self.device)
+
+    def _shard_state(self, st: TrainState) -> TrainState:
+        """This rank's block of a whole state (the state itself without a
+        mesh)."""
+        if self.mesh is None:
+            return st
+        block = lambda t: shard_points(t, self.mesh)  # noqa: E731
+        return dataclasses.replace(
+            st, scene=shard_scene(st.scene, self.mesh),
+            mu={k: block(v) for k, v in st.mu.items()},
+            nu={k: block(v) for k, v in st.nu.items()},
+            stats=DensifyStats(*(block(v) for v in st.stats)),
+        )
+
+    def set_full_state(self, st: TrainState) -> None:
+        """Continue from a whole state (on this trainer's device): with a
+        mesh, this rank keeps its block; its capacity must divide by the
+        splats axis."""
+        if st.scene.num_points % self._splats:
+            raise ValueError(f"capacity {st.scene.num_points} does not divide over "
+                             f"{self._splats} splat ranks")
+        self.state = self._shard_state(st)
+
+    def full_state(self) -> TrainState:
+        """The whole state on every rank (every rank must call it with a
+        mesh); `state` without one."""
+        st = self.state
+        if self.mesh is None:
+            return st
+        whole = lambda t: all_gather(t, self._splats_group)  # noqa: E731
+        return dataclasses.replace(
+            st, scene=gather_scene(st.scene, self.mesh),
+            mu={k: whole(v) for k, v in st.mu.items()},
+            nu={k: whole(v) for k, v in st.nu.items()},
+            stats=DensifyStats(*(whole(v) for v in st.stats)),
+        )
 
     @property
     def background(self) -> torch.Tensor:
@@ -261,16 +314,32 @@ class Trainer:
         leaves = {k: v.detach().requires_grad_(True) for k, v in st.scene.params().items()}
         offset = torch.zeros((st.scene.num_points, 2), device=self.device, requires_grad=True)
         sc = st.scene.with_params(leaves)
-        out = render(
-            sc, camera, self.background, mean2d_offset=offset,
-            pairs_per_gaussian=cfg.pairs_per_gaussian, max_chunks=cfg.max_chunks,
-            rect_candidates=cfg.rect_candidates,
-        )
+        if self.mesh is None:
+            out = render(
+                sc, camera, self.background, mean2d_offset=offset,
+                pairs_per_gaussian=cfg.pairs_per_gaussian, max_chunks=cfg.max_chunks,
+                rect_candidates=cfg.rect_candidates,
+            )
+        else:
+            out = render_sharded(
+                sc, stack_cameras([camera]), self.background, self.mesh,
+                pairs_per_gaussian=cfg.pairs_per_gaussian, max_chunks=cfg.max_chunks,
+                rect_candidates=cfg.rect_candidates, mean2d_offset=offset,
+            )
+            out = {**out, "render": out["render"][0], "radii": out["radii"][0]}
         loss = dssim_l1_loss(out["render"], gt, cfg.lambda_dssim)
         if cfg.use_reg3d and self.classifier is not None and st.step % cfg.reg3d_interval == 0:
             gen = None
             if reg3d_idx is None:
                 gen = torch.Generator(device=self.device).manual_seed(REG3D_SEED * 1_000_003 + st.step)
+            if self.mesh is not None:
+                # The regulariser samples the whole scene: every rank
+                # computes it on the gathered scene and keeps its block's
+                # gradient.
+                sc = sc.replace(alive=all_gather(sc.alive, self._splats_group), **{
+                    k: gather(v, self._splats_group, 0, sum_grads=False)
+                    for k, v in sc.params().items()
+                })
             loss = loss + reg3d_loss(
                 sc, *self.classifier, generator=gen, k=cfg.reg3d_k,
                 sample_size=cfg.reg3d_sample_size, max_points=cfg.reg3d_max_points,
@@ -312,7 +381,7 @@ class Trainer:
             and iteration % cfg.densification_interval == 0
         ):
             return
-        st = self.state
+        st = self.full_state()
         scene, stats, dropped, moments = densify_and_prune(
             st.scene, st.stats, generator, moments=(st.mu, st.nu),
             max_grad=cfg.densify_grad_threshold, min_opacity=cfg.min_opacity,
@@ -322,9 +391,9 @@ class Trainer:
         )
         if dropped > 0:
             scene, stats, moments = grow_capacity(scene, stats, cfg.capacity_headroom,
-                                                  moments=moments)
-        self.state = dataclasses.replace(st, scene=scene, mu=moments[0], nu=moments[1],
-                                         stats=stats)
+                                                  moments=moments, round_to=self._splats)
+        self.state = self._shard_state(dataclasses.replace(
+            st, scene=scene, mu=moments[0], nu=moments[1], stats=stats))
 
     def maybe_reset_opacity(self, iteration: int) -> None:
         """Opacity reset on the schedule; only the opacity group's moments
@@ -355,7 +424,8 @@ class Trainer:
         step (a generator seeded by `seed` at each call, so a resumed run
         restarts the sampler), then the SH, densify and opacity-reset
         schedules. With `checkpoint_dir`, the whole state is saved every
-        `checkpoint_every` steps (`io.checkpoint`)."""
+        `checkpoint_every` steps (`io.checkpoint`; by rank 0 with a mesh).
+        Returns the whole scene, on every rank."""
         iterations = iterations or self.cfg.iterations
         views = torch.Generator().manual_seed(seed)
         noise = torch.Generator(device=self.device).manual_seed(seed)
@@ -368,5 +438,7 @@ class Trainer:
             self.maybe_densify(it, noise)
             self.maybe_reset_opacity(it)
             if checkpoint_dir and it % checkpoint_every == 0:
-                save_checkpoint(checkpoint_dir, self.state, step=it)
-        return self.state.scene
+                state = self.full_state()
+                if self.mesh is None or dist.get_rank() == 0:
+                    save_checkpoint(checkpoint_dir, state, step=it)
+        return self.full_state().scene

@@ -179,8 +179,11 @@ def test_cli_commands_refusals_and_devices(tmp_path, monkeypatch, capsys):
     assert list(tcli.COMMANDS) == list(jcli.COMMANDS)
     assert tcli.main(["bogus"]) == jcli.main(["bogus"]) == 2
     assert tcli.main(["--help"]) == 0 and "coco-ap" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tcli.main(["attack", "use_mesh=true", "max_iters=1", *CPU])
+    # use_mesh=true joins a process group of one here, so a mesh shape of
+    # more devices is refused (and the group left).
+    with pytest.raises(ValueError, match="does not hold the 1 ranks"):
+        tcli.main(["attack", "use_mesh=true", "mesh_shape=[2,4]", "max_iters=1", *CPU])
+    assert not torch.distributed.is_initialized()
     with pytest.raises(NotImplementedError, match="item 6"):
         tcli.main(["render-eval", "pairs_budget=4096", "write_images=false", *CPU])
     with pytest.raises(NotImplementedError, match="item 6"):

@@ -73,9 +73,9 @@ def test_run_cloak_poisons_and_retrains(monkeypatch):
     delta = np.abs(np_(poisoned[0]) - gts[0])
     assert 1e-4 < delta.max() <= 8 / 255 + 1e-6
     assert all(bool(torch.isfinite(v).all()) for v in scene.params().values())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_cloak(port_scene(make_toy_scene(n=8)), [], [], tdet, ccfg, mesh=object(),
-                  device="cpu")
+    with pytest.raises(NotImplementedError, match="item 6"):
+        run_cloak(port_scene(make_toy_scene(n=8)), [], [], tdet, ccfg,
+                  train_cfg=TrainConfig(tier_split=2), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         run_cloak(port_scene(make_toy_scene(n=8)), [], [], tdet, ccfg)

@@ -181,5 +181,3 @@ def test_run_dagger_refuses_pack_layout_caps(change):
     views = [TExtrinsics(np.eye(3), np.zeros(3), 1.0, 1.0, 16, 16)]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         t_run_dagger(port_scene(js), views, tdet, TConfig(**change), log=lambda *_: None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_run_dagger(port_scene(js), views, tdet, TConfig(), log=lambda *_: None, mesh=object())

@@ -208,8 +208,6 @@ def test_trainer_refuses_what_is_not_ported(field, monkeypatch):
     sc = port_scene(make_toy_scene(n=8))
     with pytest.raises(NotImplementedError, match="item 6"):
         TTrainer(sc, TConfig(**{field: 64}), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TTrainer(sc, TConfig(), mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="backend"):
         TTrainer(sc, TConfig(backend="mosaic"), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
