@@ -899,30 +899,62 @@ def main_attack_config(out_dir: str):
     )
 
 
+def launch_counts() -> dict:
+    from gsattack_torch.ops import blend, gather
+
+    return {"fwd": blend.FWD_LAUNCHES, "bwd": blend.BWD_LAUNCHES,
+            "gather": gather.GATHER_LAUNCHES}
+
+
+def zero_launch_counts() -> None:
+    from gsattack_torch.ops import blend, gather
+
+    blend.FWD_LAUNCHES = blend.BWD_LAUNCHES = gather.GATHER_LAUNCHES = 0
+
+
+def iteration_rate(stamps) -> float:
+    """Iterations a second between the first and the last of a run's
+    per-iteration host times (the first iteration, with its warm-up, left
+    out)."""
+    return (len(stamps) - 1) / (stamps[-1] - stamps[0])
+
+
+def toy_dagger(scene, ext, device, mesh=None):
+    """Phase 4's `run_dagger` (toy head), on `mesh` when given, with the
+    launch counts set to 0 just before and read just after: (result, each
+    logged line with its host time, launches). `run_dagger` logs one
+    "Iteration:" line per PGD iteration, after the loss has come back to
+    the host."""
+    import torch
+
+    from gsattack_torch.attack import run_dagger
+    from gsattack_torch.models import ToyDetector
+
+    det = ToyDetector(num_classes=8, seed=0, device=device)
+    lines = []
+    with tempfile.TemporaryDirectory() as out_dir:
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        res = run_dagger(scene, [ext], det, main_attack_config(out_dir), mesh=mesh,
+                         log=lambda line: lines.append((time.perf_counter(), line)))
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    return res, lines, launches
+
+
 def phase_main_path(scene, cams, ext, pairs, device):
     """Phase 4: run_dagger with the counters read around it, then the
     end-to-end rates on the same 4-view batch."""
     import numpy as np
     import torch
 
-    from gsattack_torch.attack import render_views, run_dagger
+    from gsattack_torch.attack import render_views
     from gsattack_torch.models import ToyDetector
-    from gsattack_torch.ops import blend, gather
 
     det = ToyDetector(num_classes=8, seed=0, device=device)
-    with tempfile.TemporaryDirectory() as out_dir:
-        cfg = main_attack_config(out_dir)
-        # run_dagger logs one "Iteration:" line per PGD iteration, after the
-        # loss has come back to the host.
-        lines = []
-        blend.FWD_LAUNCHES = blend.BWD_LAUNCHES = gather.GATHER_LAUNCHES = 0
-        t0 = time.perf_counter()
-        res = run_dagger(scene, [ext], det, cfg,
-                         log=lambda line: lines.append((time.perf_counter(), line)))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"fwd": blend.FWD_LAUNCHES, "bwd": blend.BWD_LAUNCHES,
-                    "gather": gather.GATHER_LAUNCHES}
+    t0 = time.perf_counter()
+    res, lines, launches = toy_dagger(scene, ext, device)
+    wall = time.perf_counter() - t0
     for _, line in lines:
         log("  " + line)
     losses = np.asarray(res.losses)
@@ -940,14 +972,14 @@ def phase_main_path(scene, cams, ext, pairs, device):
     stamps = [t for t, line in lines if line.startswith("Iteration:")]
     if len(stamps) < 3:
         raise AssertionError(f"run_dagger ran {len(stamps)} iterations, too few to time")
-    pgd_it_s = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+    pgd_it_s = iteration_rate(stamps)
     for k, v in res.scene.params().items():
         if not bool(torch.isfinite(v).all()):
             raise AssertionError(f"final scene {k} not finite")
     if not torch.equal(res.scene.xyz, scene.xyz):
         raise AssertionError("a colour attack moved the positions")
     moved = (res.scene.f_dc - scene.f_dc).reshape(scene.num_points, -1).norm(dim=1)
-    if not 0 < float(moved.max()) <= cfg.epsilon * (1 + 1e-5):
+    if not 0 < float(moved.max()) <= main_attack_config("").epsilon * (1 + 1e-5):
         raise AssertionError(f"f_dc delta outside the l2 ball: {float(moved.max())}")
 
     # Render rates, after a warm-up.
@@ -2022,26 +2054,6 @@ GATE_MESH_F_DC = 1e-5  # abs, as the JAX package's test_dagger_with_mesh
 GATE_MESH_TRAJECTORY = 1e-3  # 9b's 150 losses, mesh against Trainer(), max rel
 
 
-def launch_counts() -> dict:
-    from gsattack_torch.ops import blend, gather
-
-    return {"fwd": blend.FWD_LAUNCHES, "bwd": blend.BWD_LAUNCHES,
-            "gather": gather.GATHER_LAUNCHES}
-
-
-def zero_launch_counts() -> None:
-    from gsattack_torch.ops import blend, gather
-
-    blend.FWD_LAUNCHES = blend.BWD_LAUNCHES = gather.GATHER_LAUNCHES = 0
-
-
-def iteration_rate(stamps) -> float:
-    """Iterations a second between the first and the last of a run's
-    per-iteration host times (the first iteration, with its warm-up, left
-    out)."""
-    return (len(stamps) - 1) / (stamps[-1] - stamps[0])
-
-
 def mesh_render_errors(mesh, scene, cams, pairs, band_tiles, objects: bool) -> dict:
     """Phase 9a: the sharded render of the whole scene (`shard_scene`, so
     that the whole gradient comes back on every rank) against the
@@ -2080,38 +2092,31 @@ def mesh_render_errors(mesh, scene, cams, pairs, band_tiles, objects: bool) -> d
                                  if g is not None and float(g.abs().max()) > 0}}
 
 
-def rank_9a(info) -> dict:
-    """Phase 9a on one gloo rank of the (2, 2) mesh: the sharded render
-    (RGB and 19 channels) against the unsharded one, then phase 4's
-    `run_dagger` on the mesh, the launch counts set to 0 just before and
-    read just after."""
+def rank_9a(info, shape: tuple[int, int]) -> dict:
+    """Phase 9a on one rank of a `shape` mesh: the sharded render (RGB and
+    19 channels) against the unsharded one on the rank's card, over
+    pair-balanced bands when the blend is tile-parallel, then phase 4's
+    `run_dagger` on the mesh (`toy_dagger`)."""
     import torch
     import torch.distributed as dist
 
-    from gsattack_torch.attack import run_dagger
-    from gsattack_torch.models import ToyDetector
     from gsattack_torch.ops.project import project
+    from gsattack_torch.ops.raster import _tiles
     from gsattack_torch.parallel import make_mesh, measure_tile_row_costs, plan_bands
 
     device = info["device"]
-    mesh = make_mesh(MESH_GLOO_SHAPE, "cuda")
+    mesh = make_mesh(shape, "cuda")
     scene, ext, cams, pairs = main_shapes(device)
-    with torch.no_grad():
-        costs = sum(measure_tile_row_costs(project(scene, cams.view_at(i)), cams.width,
-                                           cams.height, pairs) for i in range(cams.num_views))
-    bands = plan_bands(costs, MESH_GLOO_SHAPE[1])
+    bands = None
+    if 1 < shape[1] <= _tiles(cams.width, cams.height)[1]:
+        with torch.no_grad():
+            costs = sum(measure_tile_row_costs(project(scene, cams.view_at(i)), cams.width,
+                                               cams.height, pairs) for i in range(cams.num_views))
+        bands = plan_bands(costs, shape[1])
     out = {"bands": bands, "renders": {
         "rgb": mesh_render_errors(mesh, scene, cams, pairs, bands, objects=False),
         "19ch": mesh_render_errors(mesh, scene, cams, pairs, bands, objects=True)}}
-    det = ToyDetector(num_classes=8, seed=0, device=device)
-    lines = []
-    with tempfile.TemporaryDirectory() as out_dir:
-        torch.cuda.synchronize()
-        zero_launch_counts()
-        res = run_dagger(scene, [ext], det, main_attack_config(out_dir), mesh=mesh,
-                         log=lambda line: lines.append((time.perf_counter(), line)))
-        torch.cuda.synchronize()
-        out["launches"] = launch_counts()
+    res, lines, out["launches"] = toy_dagger(scene, ext, device, mesh)
     out["losses"] = list(res.losses)
     if dist.get_rank() == 0:
         out["lines"] = [line for _, line in lines if line.startswith("[Info]")]
@@ -2120,20 +2125,53 @@ def rank_9a(info) -> dict:
     return out
 
 
-def rank_9b(info, path: str) -> dict:
-    """Phase 9b on one gloo rank of the (1, 2) mesh: `Trainer(mesh)` for
-    phase 7b's first 150 steps (the launch counts set to 0 just before and
-    read just after), then phase 7a's gates from `Trainer()`'s final state
-    (written by the parent to `path`): one step's loss and gradients, and
-    a densify pass that grows the capacity."""
+def mesh_dagger_summary(a: list, shape, ref_losses, ref_f_dc) -> tuple[dict, list]:
+    """Phase 9a's gates on every rank's `rank_9a` result, against the
+    unsharded run's losses and rank 0's f_dc: (summary, what failed)."""
+    import numpy as np
+
+    ref_losses = np.asarray(ref_losses)
+    renders = {k: {"image_max_abs_err": max(r["renders"][k]["image_max_abs_err"] for r in a),
+                   "grad_max_rel_err": max(max(r["renders"][k]["grad_max_rel_err"].values())
+                                           for r in a)} for k in ("rgb", "19ch")}
+    loss_err = max(float(np.max(np.abs(np.asarray(r["losses"]) - ref_losses) / np.abs(ref_losses)))
+                   for r in a)
+    f_dc_err = float((a[0]["f_dc"] - ref_f_dc).abs().max())
+    summary = {"mesh": shape, "bands": a[0]["bands"], "renders": renders,
+               "losses": a[0]["losses"], "loss_max_rel_err": loss_err,
+               "f_dc_max_abs_err": f_dc_err, "pgd_it_s": a[0]["pgd_it_s"],
+               "launches": [r["launches"] for r in a]}
+    failed = []
+    if not all(v["image_max_abs_err"] <= GATE_IMAGE and v["grad_max_rel_err"] <= GATE_GRAD
+               for v in renders.values()):
+        failed.append("render")
+    if not all(len(r["losses"]) == len(ref_losses) for r in a) or not (
+            loss_err <= GATE_MESH_LOSS and f_dc_err <= GATE_MESH_F_DC):
+        failed.append("run_dagger")
+    failed += unlaunched(summary["launches"])
+    return summary, failed
+
+
+def unlaunched(launches: list) -> list:
+    """The ranks that did not launch both blend kernels, by their counts."""
+    return [f"blend kernels not launched on rank {i}"
+            for i, n in enumerate(launches) if not (n["fwd"] and n["bwd"])]
+
+
+def rank_9b(info, path: str, shape: tuple[int, int]) -> dict:
+    """Phase 9b on one rank of a `shape` mesh: `Trainer(mesh)` for phase
+    7b's first 150 steps (the launch counts set to 0 just before and read
+    just after), then phase 7a's gates from `Trainer()`'s final state
+    (written by `mesh_train_reference` to `path`): one step's loss and
+    gradients, and a densify pass that grows the capacity."""
     import torch
 
-    from gsattack_torch.parallel import make_mesh
+    from gsattack_torch.parallel import SPLATS_AXIS, make_mesh
     from gsattack_torch.train import Trainer
 
     device = info["device"]
-    mesh = make_mesh(MESH_TRAIN_SHAPE, "cuda")
-    ref = torch.load(path, weights_only=False)  # written by this script's parent process
+    mesh = make_mesh(shape, "cuda")
+    ref = torch.load(path, weights_only=False)  # written by this script's own process
     cams = [e.build(device=device) for e in ref["exts"]]
     gts = [g.to(device) for g in ref["gts"]]
     trainer = Trainer(ref["init"], ref["cfg"], cameras_extent=ref["extent"], mesh=mesh,
@@ -2150,7 +2188,7 @@ def rank_9b(info, path: str) -> dict:
 
     trainer.set_full_state(ref["state"].to(device))
     loss, grads, mean2d, _ = trainer.loss_and_grads(cams[0], gts[0])
-    block = lambda t: t.chunk(MESH_TRAIN_SHAPE[1])[info["process_id"]]  # noqa: E731
+    block = lambda t: t.chunk(shape[1])[mesh.get_local_rank(SPLATS_AXIS)]  # noqa: E731
     want = ref["step"]
     grad_err = {k: max_rel(g.cpu(), block(want["grads"][k])) for k, g in grads.items()
                 if float(want["grads"][k].abs().max()) > 0}
@@ -2160,11 +2198,52 @@ def rank_9b(info, path: str) -> dict:
 
     trainer.cfg.densify_grad_threshold = ref["densify"]["threshold"]
     trainer.maybe_densify(trainer.cfg.densify_from_iter, noise=ref["densify"]["noise"].to(device))
-    got = trainer.full_state().to("cpu")
-    equal, err = states_differ(got, ref["densify"]["state"])
-    out["densify"] = {"states_equal": equal, "max_abs_err": err,
+    got, want = trainer.full_state().to("cpu"), ref["densify"]["state"]
+    # The mesh rounds the capacity up to a multiple of the splats axis
+    # with dead points; the rest is `Trainer()`'s state.
+    n = want.scene.num_points
+    tail_dead = got.scene.num_points - n < shape[1] and not bool(got.scene.alive[n:].any())
+    equal, err = states_differ(first_rows(got, n), want)
+    out["densify"] = {"states_equal": equal and tail_dead, "max_abs_err": err,
                       "capacity": [ref["state"].scene.num_points, got.scene.num_points]}
     return out
+
+
+def first_rows(st, n: int):
+    """A training state cut to its first `n` points."""
+    import dataclasses
+
+    from gsattack_torch.core.scene import PARAM_NAMES
+
+    rows = lambda d: {k: v[:n] for k, v in d.items()}  # noqa: E731
+    return dataclasses.replace(
+        st, scene=st.scene.replace(**rows({k: getattr(st.scene, k)
+                                           for k in PARAM_NAMES + ("alive",)})),
+        mu=rows(st.mu), nu=rows(st.nu), stats=type(st.stats)(*(v[:n] for v in st.stats)))
+
+
+def mesh_train_summary(b: list, shape, plain: dict) -> tuple[dict, list]:
+    """Phase 9b's gates on every rank's `rank_9b` result against
+    `mesh_train_reference`'s `plain`: (summary, what failed)."""
+    import numpy as np
+
+    traj_err = max(float(np.max(np.abs(np.asarray(r["losses"]) - plain["losses"])
+                                / np.abs(plain["losses"]))) for r in b)
+    step = {"loss_rel_err": max(r["step"]["loss_rel_err"] for r in b),
+            "grad_max_rel_err": {k: max(r["step"]["grad_max_rel_err"][k] for r in b)
+                                 for k in b[0]["step"]["grad_max_rel_err"]}}
+    summary = {"mesh": shape, "steps": MESH_TRAIN_ITERS, "trajectory_loss_max_rel_err": traj_err,
+               "alive": [plain["alive"]] + [r["alive"] for r in b], "step": step,
+               "densify": b[0]["densify"], "threshold": plain["threshold"],
+               "train_it_s": b[0]["train_it_s"], "plain_train_it_s": plain["train_it_s"],
+               "launches": [r["launches"] for r in b]}
+    failed = []
+    if not (traj_err <= GATE_MESH_TRAJECTORY and step["loss_rel_err"] <= GATE_TRAIN_LOSS
+            and max(step["grad_max_rel_err"].values()) <= GATE_GRAD
+            and all(r["densify"]["states_equal"] and r["densify"]["max_abs_err"] <= GATE_DENSIFY
+                    and r["densify"]["capacity"][1] > r["densify"]["capacity"][0] for r in b)):
+        failed.append("Trainer(mesh)")
+    return summary, failed + unlaunched(summary["launches"])
 
 
 def rank_9c(info, pairs: int) -> dict:
@@ -2256,56 +2335,33 @@ def phase_mesh(main: dict, detectors: dict, train_inputs: dict, device) -> dict:
 
     t0 = time.perf_counter()
     summary, failed = {}, []
-    a = run_local(rank_9a, 4, backend="gloo", device="cuda", threads=2, timeout=900)
-    ref_losses, ref_f_dc = np.asarray(main["losses"]), main["f_dc"]
-    renders = {k: {"image_max_abs_err": max(r["renders"][k]["image_max_abs_err"] for r in a),
-                   "grad_max_rel_err": max(max(r["renders"][k]["grad_max_rel_err"].values())
-                                           for r in a)} for k in ("rgb", "19ch")}
-    loss_err = max(float(np.max(np.abs(np.asarray(r["losses"]) - ref_losses) / np.abs(ref_losses)))
-                   for r in a)
-    f_dc_err = float((a[0]["f_dc"] - ref_f_dc).abs().max())
-    summary["9a"] = {"mesh": MESH_GLOO_SHAPE, "backend": "gloo", "bands": a[0]["bands"],
-                     "renders": renders, "losses": a[0]["losses"], "loss_max_rel_err": loss_err,
-                     "f_dc_max_abs_err": f_dc_err, "pgd_it_s": a[0]["pgd_it_s"],
-                     "launches": [r["launches"] for r in a]}
+    a = run_local(rank_9a, 4, args=(MESH_GLOO_SHAPE,), backend="gloo", device="cuda", threads=2,
+                  timeout=900)
+    summary["9a"], bad = mesh_dagger_summary(a, MESH_GLOO_SHAPE, main["losses"], main["f_dc"])
+    summary["9a"]["backend"] = "gloo"
+    failed += [f"9a {f}" for f in bad]
     log(f"phase 9a {MESH_GLOO_SHAPE} mesh, 4 gloo ranks on cuda:0 (gloo takes the CUDA tensors "
         f"and copies them through host memory itself): bands {a[0]['bands']}; render vs "
-        f"unsharded {renders}; run_dagger {len(a[0]['losses'])} PGD iterations, losses max rel "
-        f"{loss_err:.2e} and f_dc max abs {f_dc_err:.2e} against phase 4's; PGD "
+        f"unsharded {summary['9a']['renders']}; run_dagger {len(a[0]['losses'])} PGD "
+        f"iterations, losses max rel {summary['9a']['loss_max_rel_err']:.2e} and f_dc max abs "
+        f"{summary['9a']['f_dc_max_abs_err']:.2e} against phase 4's; PGD "
         f"{a[0]['pgd_it_s']:.3f} it/s (phase 4: {main['rates']['pgd_it_s']:.3f}); "
         f"{a[0]['lines']}; launches by rank {summary['9a']['launches']}")
-    if not all(v["image_max_abs_err"] <= GATE_IMAGE and v["grad_max_rel_err"] <= GATE_GRAD
-               for v in renders.values()):
-        failed.append("9a render")
-    if not (len(a[0]["losses"]) == len(ref_losses) and loss_err <= GATE_MESH_LOSS
-            and f_dc_err <= GATE_MESH_F_DC):
-        failed.append("9a run_dagger")
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "train_reference.pt")
         plain = mesh_train_reference(train_inputs, device, path)
-        b = run_local(rank_9b, 2, args=(path,), backend="gloo", device="cuda", threads=4,
-                      timeout=900)
-    traj_err = max(float(np.max(np.abs(np.asarray(r["losses"]) - plain["losses"])
-                                / np.abs(plain["losses"]))) for r in b)
-    step = {"loss_rel_err": max(r["step"]["loss_rel_err"] for r in b),
-            "grad_max_rel_err": {k: max(r["step"]["grad_max_rel_err"][k] for r in b)
-                                 for k in b[0]["step"]["grad_max_rel_err"]}}
-    summary["9b"] = {"mesh": MESH_TRAIN_SHAPE, "backend": "gloo", "steps": MESH_TRAIN_ITERS,
-                     "trajectory_loss_max_rel_err": traj_err, "alive": [plain["alive"]]
-                     + [r["alive"] for r in b], "step": step, "densify": b[0]["densify"],
-                     "train_it_s": b[0]["train_it_s"], "plain_train_it_s": plain["train_it_s"],
-                     "launches": [r["launches"] for r in b]}
+        b = run_local(rank_9b, 2, args=(path, MESH_TRAIN_SHAPE), backend="gloo", device="cuda",
+                      threads=4, timeout=900)
+    summary["9b"], bad = mesh_train_summary(b, MESH_TRAIN_SHAPE, plain)
+    summary["9b"]["backend"] = "gloo"
+    failed += [f"9b {f}" for f in bad]
     log(f"phase 9b {MESH_TRAIN_SHAPE} mesh, 2 gloo ranks: Trainer(mesh) {MESH_TRAIN_ITERS} steps "
         f"at {b[0]['train_it_s']:.3f} it/s (Trainer() {plain['train_it_s']:.3f} it/s), losses max "
-        f"rel {traj_err:.2e}, alive {summary['9b']['alive']}; from Trainer()'s final state: "
-        f"step {step}, densify (threshold {plain['threshold']:.3e}) {b[0]['densify']}; launches "
-        f"by rank {summary['9b']['launches']}")
-    if not (traj_err <= GATE_MESH_TRAJECTORY and step["loss_rel_err"] <= GATE_TRAIN_LOSS
-            and max(step["grad_max_rel_err"].values()) <= GATE_GRAD
-            and all(r["densify"]["states_equal"] and r["densify"]["max_abs_err"] <= GATE_DENSIFY
-                    and r["densify"]["capacity"][1] > r["densify"]["capacity"][0] for r in b)):
-        failed.append("9b")
+        f"rel {summary['9b']['trajectory_loss_max_rel_err']:.2e}, alive "
+        f"{summary['9b']['alive']}; from Trainer()'s final state: step {summary['9b']['step']}, "
+        f"densify (threshold {plain['threshold']:.3e}) {b[0]['densify']}; launches by rank "
+        f"{summary['9b']['launches']}")
 
     (c,) = run_local(rank_9c, 1, args=(main["pairs_per_gaussian"],), backend="nccl",
                      device="cuda", threads=8, timeout=900)
@@ -2319,11 +2375,7 @@ def phase_mesh(main: dict, detectors: dict, train_inputs: dict, device) -> dict:
         f"(phase 6: {detectors['yolov8']['pgd_it_s']:.3f}); launches {c['launches']}")
     if not (len(c["losses"]) == len(ref) and c_err <= GATE_MESH_LOSS):
         failed.append("9c")
-
-    no_launch = [f"{k} rank {i}" for k in ("9a", "9b", "9c")
-                 for i, n in enumerate(summary[k]["launches"]) if not (n["fwd"] and n["bwd"])]
-    if no_launch:
-        failed.append(f"blend kernels not launched: {no_launch}")
+    failed += [f"9c {f}" for f in unlaunched(summary["9c"]["launches"])]
     summary["phase_s"] = time.perf_counter() - t0
     if failed:
         raise AssertionError(f"phase 9 gates failed: {failed}: {summary}")

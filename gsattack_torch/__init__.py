@@ -39,7 +39,7 @@ Layout mirrors `gsattack/`:
   convert   numpy weights/state from `gsattack` into this package (scenes,
             cameras, training states, every detector's flax variables)
   scripts/  micro-benches (`python -m gsattack_torch.scripts.micro_gather`),
-            the blend A/B, the mesh on several cards (`mesh_bench`)
+            the blend A/B
 
 Importing the package needs neither CUDA nor a compiler: the kernel library
 is built and loaded on the first launch on a CUDA tensor. Constructors take

@@ -14,8 +14,8 @@ from .mesh import (
 )
 from .shard import measure_tile_row_costs, plan_bands, render_sharded, render_views_sharded
 from .shardings import (
-    CAMERA_PLACEMENTS,
-    SCENE_PLACEMENTS,
+    CAMERA_SPEC,
+    SCENE_SPEC,
     gather_scene,
     pad_to_multiple,
     shard_camera_batch,
@@ -30,8 +30,8 @@ __all__ = [
     "local_mesh_shape",
     "make_mesh",
     "run_local",
-    "SCENE_PLACEMENTS",
-    "CAMERA_PLACEMENTS",
+    "SCENE_SPEC",
+    "CAMERA_SPEC",
     "pad_to_multiple",
     "shard_scene",
     "shard_points",

@@ -61,11 +61,13 @@ def initialize_distributed(
     `world_size` and `rank` are given together or not at all. Without them
     the process reads `torchrun`'s environment (RANK, WORLD_SIZE,
     MASTER_ADDR, MASTER_PORT) or, outside `torchrun`, forms a group of one.
-    On a CUDA `device`, rank r runs on `cuda:LOCAL_RANK` (modulo the cards
-    present, so that gloo ranks can share one card); NCCL needs a CUDA
-    device. After the join, the world size must equal `expect_devices`
-    when it is given. Returns {distributed, process_id, num_processes,
-    devices, local_devices, backend, device}."""
+    A process that has joined a group already keeps it, and its rank.
+    On a CUDA `device`, rank r runs on `cuda:LOCAL_RANK` (LOCAL_RANK
+    defaults to the global rank; modulo the cards present, so that gloo
+    ranks can share one card); NCCL needs a CUDA device. After the join,
+    the world size must equal `expect_devices` when it is given. Returns
+    {distributed, process_id, num_processes, devices, local_devices,
+    local_rank, backend, device}."""
     explicit = [init_method, world_size, rank]
     if any(a is not None for a in explicit):
         if any(a is None for a in explicit):
@@ -80,14 +82,16 @@ def initialize_distributed(
     dev = resolve_device(device)
     if backend == "nccl" and dev.type != "cuda":
         raise ValueError("the nccl backend needs a CUDA device")
-    if init_method is None:
+    if dist.is_initialized():
+        rank, world_size = dist.get_rank(), dist.get_world_size()
+    elif init_method is None:
         if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
             init_method = "env://"
             rank, world_size = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
         else:
             init_method, rank, world_size = f"tcp://127.0.0.1:{_free_port()}", 0, 1
+    local_rank = int(os.environ.get("LOCAL_RANK", rank))
     if dev.type == "cuda":
-        local_rank = int(os.environ.get("LOCAL_RANK", rank))
         dev = torch.device("cuda", local_rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
     if not dist.is_initialized():
@@ -105,6 +109,7 @@ def initialize_distributed(
         "num_processes": n,
         "devices": n,
         "local_devices": 1,
+        "local_rank": local_rank,
         "backend": dist.get_backend(),
         "device": dev,
     }
@@ -158,14 +163,18 @@ def _rank_main(rank, world_size, init_method, backend, device, threads, fn, args
 
 
 def run_local(fn: Callable, world_size: int, args: tuple = (), backend: str = "gloo",
-              device: str = "cpu", threads: int = 1, timeout: float = 600.0) -> list:
+              device: str | torch.device = "cuda", threads: int = 1,
+              timeout: float = 600.0) -> list:
     """Run `fn(info, *args)` on `world_size` ranks of one host, each a
     spawned process joined by `initialize_distributed` (a `file://`
     rendezvous in a fresh temporary directory; `info` is its summary,
     with the rank's device), and return each rank's result in rank
-    order. `fn` and its arguments and result must pickle. Raises with the
-    rank's traceback if a rank raised, or if the ranks have not all
-    answered within `timeout` seconds; no process outlives the call."""
+    order. `fn` and its arguments and result must pickle. The ranks run
+    on the card unless `device` is the CPU; without a card a CUDA
+    `device` raises here, before any rank starts. Raises with the rank's
+    traceback if a rank raised, or if the ranks have not all answered
+    within `timeout` seconds; no process outlives the call."""
+    device = resolve_device(device)
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     with tempfile.TemporaryDirectory() as tmp:

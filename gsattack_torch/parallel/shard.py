@@ -37,7 +37,7 @@ from ..ops.project import ProjectedGaussians, project, stack_projections
 from ..ops.raster import TILE, _tiles, bin_gaussians, rasterize_views
 from .collectives import all_reduce, gather, sum_grads_over
 from .mesh import SPLATS_AXIS, VIEWS_AXIS, axis_size
-from .shardings import assemble, image_placements, shard_camera_batch
+from .shardings import assemble, image_spec, shard_camera_batch
 
 
 def measure_tile_row_costs(
@@ -200,7 +200,7 @@ def render_sharded(
     img = torch.cat([out["render"], out["render_object"]], -1) if return_objects else out["render"]
     if pad:
         img = torch.nn.functional.pad(img, (0, 0, 0, 0, 0, pad))
-    img = assemble(img, mesh, image_placements(views_sharded, tile_parallel))
+    img = assemble(img, mesh, image_spec(views_sharded, tile_parallel))
     if row_idx is not None:
         img = img.index_select(1, torch.as_tensor(row_idx, device=img.device))
 

@@ -84,14 +84,14 @@ def inputs():
 @pytest.fixture(scope="module")
 def group4(inputs):
     return run_local(ranks.group_2x2, 4, args=(inputs["scenes"], inputs["cams"], inputs["dagger"]),
-                     timeout=300)
+                     device="cpu", timeout=300)
 
 
 @pytest.fixture(scope="module")
 def group2(inputs, tmp_path_factory):
     return run_local(ranks.group_1x2, 2, args=(inputs["train"], inputs["cloak"],
                                                str(tmp_path_factory.mktemp("cli_mesh"))),
-                     timeout=300)
+                     device="cpu", timeout=300)
 
 
 # ---- the mesh shape, the band planner and its costs, directly -----------
@@ -169,6 +169,12 @@ def test_initialize_distributed_validation():
         initialize_distributed("nccl", device="cpu")
 
 
+def test_run_local_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        run_local(ranks.group_1x2, 2)
+
+
 @pytest.mark.parametrize("overrides,hint", [
     (["use_mesh=false"], 4),
     (["use_mesh=true"], 1),
@@ -193,7 +199,7 @@ def test_mesh_shape_from_cfg_matches_jax(overrides, hint):
 def test_group_joins(group4):
     for r, res in enumerate(group4):
         want = {"distributed": True, "process_id": r, "num_processes": 4, "devices": 4,
-                "local_devices": 1, "backend": "gloo"}
+                "local_devices": 1, "local_rank": r, "backend": "gloo"}
         assert res["info"] == res["joined_again"] == want
 
 
