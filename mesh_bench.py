@@ -14,9 +14,9 @@ checks on its own card, with the mesh shape as their argument:
   and (2, N/2) for even N > 2) `chip_smoke.rank_9a`: the sharded render
   against the unsharded one on the rank's card, RGB and 19 channels
   (images 1e-5 abs, every gradient 1e-3 max rel), then `run_dagger` on
-  the mesh against the reference (losses 1e-4 rel, f_dc 1e-5 abs of the
-  reference or of one of its reruns, `chip_smoke.MESH_F_DC_RERUNS`),
-  with its PGD it/s and each rank's blend launches;
+  the mesh against the reference (losses 1e-4 rel; f_dc 1e-5 abs after
+  `chip_smoke.MESH_F_DC_ITERS` PGD iterations), with its PGD it/s and
+  each rank's blend launches;
 - on a (1, N) mesh, `chip_smoke.rank_9b`: `Trainer(mesh)` for phase 7b's
   first 150 steps against `Trainer()` on rank 0's card
   (`chip_smoke.mesh_train_reference`), then phase 7a's gates, with both
@@ -98,13 +98,12 @@ def main(argv=None) -> int:
         ref_losses, ref_f_dc = list(res.losses), res.scene.f_dc.cpu()
         summary["unsharded_pgd_it_s"] = cs.iteration_rate(
             [t for t, line in lines if line.startswith("Iteration:")])
-        del res
+        short_ref = cs.unsharded_f_dc_reference(scene, ext, device)
+        del scene, res
     for shape in shapes:
         a = gathered(cs.rank_9a(info, shape))
         if rank0:
-            row, bad = cs.mesh_dagger_summary(
-                a, shape, ref_losses, ref_f_dc,
-                lambda: cs.toy_dagger(scene, ext, device)[0].scene.f_dc.cpu())
+            row, bad = cs.mesh_dagger_summary(a, shape, ref_losses, ref_f_dc, short_ref)
             summary["shapes"]["x".join(map(str, shape))] = row
             failed += [f"{shape} {f}" for f in bad]
 
