@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of `gsattack_torch` on one CUDA card: builds the kernels from
-`gsattack_torch/csrc` (the tile blend and the row gather), holds them
-against their plain PyTorch version, drives the DAGGER attack end to end,
+`gsattack_torch/csrc` (the tile blend, the backward's per-gaussian sum and
+the row gather), holds them against their plain PyTorch version, drives
+the DAGGER attack end to end and twice (bit for bit the same),
 drives the row gather's micro-bench, runs the detector zoo at full width,
 with DAGGER against each main detector, trains a 3DGS scene and CLOAKs
 it at full width, drives the command line (train, attack, render-eval,
 asr, coco-ap, recolor, combine, grouping-render) through files, runs the
 attack and the trainer over a (views, splats) device mesh of processes on
-the card, and drives the profiler and the viewer.
+the card, drives the profiler and the viewer, and the static caps of the
+reference's Pallas route.
 
     python3 chip_smoke.py
 
@@ -27,20 +29,33 @@ Phases (any failure raises and exits non-zero):
      0.999 centred on pixels; each tile's deepest last contributor must be
      its capped pair count, so the backward starts at every batch edge.
   3. Kernel vs plain at the main path's shapes (100k splats, SH3, 800x800,
-     4 views, 19 channels), with each kernel's time, the plain version's
-     time and the least time the card could take (its bound), from the
-     (pixel, pair) work these inputs need; and the backward's (warp, pair)
-     steps with a live lane, with the warp shuffles that summing their
-     gradients takes by a butterfly per value and by the reduce-scatter.
+     4 views, 19 channels), the backward as autograd runs it (`blend_bwd`'s
+     per-pair rows summed by `gather_sum_rows` over the slot table), with
+     each kernel's time, the plain version's time and the least time the
+     card could take (its bound), from the (pixel, pair) work these inputs
+     need; `gather_sum_rows` equal to its plain version (`torch.equal`) and
+     timed beside `index_add_`, the two backward kernels timed apart and
+     together beside the fused atomic kernel's 0.8637 ms they replace; and
+     the backward's (warp, pair) steps with a live lane, with the warp
+     shuffles that summing their gradients takes by a butterfly per value
+     and by the reduce-scatter.
   4. Main path: `run_dagger` with the toy head on that scene, yaw-augmented
-     to 4 views, chunk 128 x max_chunks 16 (a 2048-pair tile cap), with the
-     launch counters set to 0 just before and read just after, and its
+     to 4 views, chunk 128 x max_chunks 16 (a 2048-pair tile cap), cuDNN's
+     deterministic algorithms on (`deterministic_cudnn`), with the
+     launch counters set to 0 just before and read just after (each blend
+     kernel and `gather_sum_rows` launched), and its
      PGD it/s from the times of its per-iteration log lines; then fwd+bwd
      Mpix/s (RGB and with the object channels), timed with CUDA events
      after a warm-up; then where the time of a loss-and-step iteration
      (run_dagger's loop without its eval render) goes: device time by
      kernel and the busy share (torch.profiler), and the host wall time
      of each stage.
+  4b. Reproducibility: the backward three times on phase 3's inputs, equal
+     (`torch.equal`); one loss-and-gradient of phase 4's attack twice,
+     stage by stage, with cuDNN's default algorithms and its deterministic
+     ones (which stage varies: the toy head's image gradient with the
+     defaults); phase 4's `run_dagger` again, its losses and its f_dc
+     after all its PGD iterations equal to phase 4's.
   5. Row gather (`ops/gather.py`): (a) edge cases, each equal to the plain
      version (`torch.equal`) with one launch (none for M = 0): W = 3 and a
      misaligned W = 4 source (the scalar path), W = 40, S = 1, repeated
@@ -149,6 +164,16 @@ Phases (any failure raises and exits non-zero):
      events; the summary lists every stage); `serve_scene` in a daemon
      thread answers two `request_frame` calls over localhost with frames
      equal to `render` of the request's camera in RGB8.
+ 11. The static caps (`phase_caps`): (a) phase 4's `run_dagger` on the
+     "pallas" route with every cap at -1, sized by the probes (printed),
+     no pair truncated at those sizes, losses and f_dc against phase 4's
+     (1e-4 rel, 1e-5 abs; bit-equal expected and printed), PGD it/s; (b)
+     view 0 at half the probed pairs_budget, compact_budget and
+     heavy_budget: each cap's dropped pairs above 0 and equal to the CPU
+     binning's, both kernels against the plain version under all three
+     (phase 3's gates); (c) `Trainer` with `auto_caps`-sized caps for 50
+     steps of phase 7b's schedule: finite losses, every blend kernel
+     launched each step.
 
 Prints the card's line and the kernels as one JSON line, then the ok
 line last.
@@ -188,6 +213,10 @@ OPS_BWD_LIVE = lambda ch: 34 + 4 * ch  # noqa: E731
 
 GATE_IMAGE = 1e-5
 GATE_GRAD = 1e-3
+# The time of the fused backward with atomics that blend_bwd +
+# gather_sum_rows replace, at phase 3's shapes, as phase 3 measured it on
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel table).
+FUSED_BWD_MS = 0.8637
 CHUNK, MAX_CHUNKS = 128, 16
 EDGE_BATCHES = (32, 64)  # pairs staged per step: blend.cu's BWD_BATCH, FWD_BATCH
 # The row gather's sizes: the 500k-splat scene's gathers, as the JAX
@@ -427,9 +456,10 @@ def phase_small(device, tx_ty):
     results = {}
     for route in ("kernel", "plain"):
         if route == "kernel":
-            img, T = blend.blend(*idx, *blend_in, *tiles, cap)
+            img, T = blend.blend(*idx, *blend_in, *tiles, cap, bins.slot_table)
         else:
-            img, T = blend_tiles_plain(*idx, *blend_in, *tiles, PLAIN_CHUNK, PLAIN_MAX_CHUNKS)
+            img, T = blend_tiles_plain(*idx, *blend_in, *tiles, PLAIN_CHUNK, PLAIN_MAX_CHUNKS,
+                                       bins.slot_table)
         loss = (img * w_img).sum() + (T * w_t).sum()
         grads = torch.autograd.grad(loss, wrt, retain_graph=True, allow_unused=True)
         results[route] = (img.detach(), T.detach(), grads)
@@ -453,14 +483,39 @@ def phase_small(device, tx_ty):
     return err
 
 
+def kernel_grads(idx, plain_in, tiles, T, last, g_img, g_t, slot_table=None):
+    """The kernels' backward as autograd runs it: `blend_bwd`'s per-pair
+    rows summed by gaussian over the slot table by `gather_sum_rows`
+    (`slot_table_of` the pair list when not given). Returns (the four
+    per-gaussian gradients, the per-pair rows, the slot table). A
+    checkout whose backward kernel sums per gaussian itself (as
+    `scripts/blend_ab.py`'s parent may) gives its gradients and None."""
+    from gsattack_torch.ops import blend
+
+    rows = blend.backward_kernel(*idx, *plain_in, *tiles, T, last, g_img, g_t)
+    if not hasattr(rows, "shape"):
+        return rows, None, None
+    from gsattack_torch.ops.gather_sum import gather_sum_rows
+    from gsattack_torch.ops.raster import slot_table_of
+
+    v, n, _ = plain_in[3].shape
+    if slot_table is None:
+        slot_table = slot_table_of(*idx, v * n)
+    grads = blend.split_rows(gather_sum_rows(rows, slot_table), v, n)
+    return grads, rows, slot_table
+
+
 def kernels_vs_plain(idx, blend_in, tiles, cap: int,
-                     plain_chunks=(PLAIN_CHUNK, PLAIN_MAX_CHUNKS), seed: int = 3) -> dict:
+                     plain_chunks=(PLAIN_CHUNK, PLAIN_MAX_CHUNKS), seed: int = 3,
+                     slot_table=None) -> dict:
     """Both kernels against the plain version on the same inputs: the
-    forward kernel's image and T, and the backward kernel's gradients for
-    seeded random output gradients against the plain version's autograd
-    (`blend_in` must require grad). Returns the errors (image/T max abs,
-    gradients max abs and max rel each), the forward's (T, last), the output
-    gradients and the plain loss, whose autograd is the plain backward."""
+    forward kernel's image and T, and the backward kernels' gradients
+    (`kernel_grads`) for seeded random output gradients against the plain
+    version's autograd (`blend_in` must require grad), both over
+    `slot_table` when given. Returns the errors (image/T max abs,
+    gradients max abs and max rel each), the forward's (T, last), the
+    output gradients, the per-pair rows and the slot table, and the plain
+    loss, whose autograd is the plain backward."""
     import torch
 
     from gsattack_torch.ops import blend
@@ -472,8 +527,9 @@ def kernels_vs_plain(idx, blend_in, tiles, cap: int,
     g = torch.Generator(device=img_k.device).manual_seed(seed)
     g_img = torch.randn(img_k.shape, generator=g, device=img_k.device)
     g_t = torch.randn(T_k.shape, generator=g, device=img_k.device)
-    grads_k = blend.backward_kernel(*idx, *plain_in, *tiles, T_k, last, g_img, g_t)
-    img_p, T_p = blend_tiles_plain(*idx, *blend_in, *tiles, *plain_chunks)
+    grads_k, rows, table = kernel_grads(idx, plain_in, tiles, T_k, last, g_img, g_t, slot_table)
+    extra = () if slot_table is None else (slot_table,)
+    img_p, T_p = blend_tiles_plain(*idx, *blend_in, *tiles, *plain_chunks, *extra)
     out_p = (img_p * g_img).sum() + (T_p * g_t).sum()
     grads_p = torch.autograd.grad(out_p, blend_in, retain_graph=True)
     names = ("d_mean2d", "d_conic", "d_opacity", "d_colour")
@@ -483,6 +539,7 @@ def kernels_vs_plain(idx, blend_in, tiles, cap: int,
         "bwd_abs": max(float((a - b).abs().max()) for a, b in zip(grads_k, grads_p)),
         "bwd_rel": {k: max_rel(a, b) for k, a, b in zip(names, grads_k, grads_p)},
         "T": T_k, "last": last, "g_img": g_img, "g_T": g_t, "plain_out": out_p,
+        "grads": grads_k, "rows": rows, "slot_table": table,
     }
 
 
@@ -597,12 +654,50 @@ def phase_edge_tiles(device) -> dict:
     return errs
 
 
+def gather_sum_edges(device) -> dict:
+    """`gather_sum_rows` on its edge cases, at W of 9 and 25 (3 and 19
+    channels): c = 1, a row of -1 only, N = 0 (no launch), repeated slots;
+    each equal to the plain version (`torch.equal`), with one launch
+    (none for N = 0)."""
+    import torch
+
+    from gsattack_torch.ops import gather_sum
+
+    g = torch.Generator().manual_seed(12)
+    out = {}
+    for w in (9, 25):
+        rows = torch.randn((50, w), generator=g).to(device)
+        cases = {
+            "c=1": torch.randint(-1, 50, (33, 1), generator=g),
+            "all -1 row": torch.cat([torch.randint(-1, 50, (7, 5), generator=g),
+                                     torch.full((1, 5), -1)]),
+            "N=0": torch.zeros((0, 4), dtype=torch.int64),
+            "repeated slots": torch.tensor([[3, 3, 3, -1], [7, -1, 7, 7], [0, 1, 0, 1]]),
+        }
+        for name, table in cases.items():
+            table = table.to(torch.int32).to(device)
+            before = gather_sum.GATHER_SUM_LAUNCHES
+            got = gather_sum.gather_sum_rows(rows, table)
+            launched = gather_sum.GATHER_SUM_LAUNCHES - before
+            equal = torch.equal(got, gather_sum.gather_sum_rows_plain(rows, table))
+            out[f"W={w} {name}"] = equal and launched == (0 if name == "N=0" else 1)
+    torch.cuda.synchronize()
+    bad = [k for k, ok in out.items() if not ok]
+    log(f"  gather_sum_rows edge cases (equal to plain, launches as expected): "
+        f"{len(out) - len(bad)} of {len(out)}")
+    if bad:
+        raise AssertionError(f"gather_sum_rows edge cases failed: {bad}")
+    return out
+
+
 def phase_main_shapes(scene, cams, pairs, tx_ty):
-    """Phase 3: both kernels against the plain version at the main path's
-    shapes, with their times and bounds."""
+    """Phase 3: both blend kernels and the backward's per-gaussian sum
+    against the plain version at the main path's shapes, with their times
+    and bounds, and `index_add_`'s time for the sum."""
     import torch
 
     from gsattack_torch.ops import blend
+    from gsattack_torch.ops.gather_sum import gather_sum_rows, gather_sum_rows_plain
     from gsattack_torch.ops.raster import blend_tiles_plain
 
     _, proj, bins, blend_in = blend_inputs(scene, cams, pairs, grad_scene=False)
@@ -610,41 +705,67 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
     v, n, ch = blend_in[3].shape
     cap = CHUNK * MAX_CHUNKS
     idx = (bins.gauss_idx, bins.tile_start, bins.tile_end)
+    table = bins.slot_table
     plain_in = [x.detach() for x in blend_in]
-    cmp = kernels_vs_plain(idx, blend_in, tiles, cap)
+    cmp = kernels_vs_plain(idx, blend_in, tiles, cap, slot_table=table)
     T_k, last, g_img, g_t = cmp["T"], cmp["last"], cmp["g_img"], cmp["g_T"]
     fwd_err, bwd_abs, bwd_rel = cmp["fwd_err"], cmp["bwd_abs"], cmp["bwd_rel"]
-    out_p = cmp["plain_out"]
+    rows, out_p = cmp["rows"], cmp["plain_out"]
     log(f"phase 3  kernel vs plain at the main path's shapes ({n} splats, "
         f"{cams.width}x{cams.height}, {v} views, {ch} ch, {bins.gauss_idx.shape[0]} pairs, "
-        f"{truncated(bins)} truncated, {int(bins.num_culled_pairs)} culled):")
-    log(f"  image/T max abs {fwd_err:.3e}; gradients max rel "
+        f"{truncated(bins)} truncated, {int(bins.num_culled_pairs)} culled; slot table "
+        f"{tuple(table.shape)}, {int((table >= 0).sum())} slots named):")
+    log(f"  image/T max abs {fwd_err:.3e}; gradients (blend_bwd + gather_sum_rows) max rel "
         + ", ".join(f"{k} {e:.3e}" for k, e in bwd_rel.items()))
     if fwd_err > GATE_IMAGE or max(bwd_rel.values()) > GATE_GRAD:
         raise AssertionError(f"phase 3 gate failed: image/T {fwd_err}, grads {bwd_rel}")
+    # The per-gaussian sum alone against its plain version, bit for bit,
+    # and against index_add_ (which sums with atomics) to rounding.
+    gidx = bins.gauss_idx.long()
+    with torch.no_grad():
+        summed = gather_sum_rows(rows, table)
+        sum_equal = torch.equal(summed, gather_sum_rows_plain(rows, table))
+        library = torch.zeros_like(summed).index_add_(0, gidx, rows)
+    sum_err = float((summed - library).abs().max())
+    if not sum_equal:
+        raise AssertionError("phase 3: gather_sum_rows differs from its plain version")
+    gather_sum_edges(plain_in[0].device)
 
     with torch.no_grad():
         fwd_ms = cuda_ms(lambda: blend.forward_kernel(*idx, *plain_in, *tiles, cap), reps=10)
         bwd_ms = cuda_ms(
             lambda: blend.backward_kernel(*idx, *plain_in, *tiles, T_k, last, g_img, g_t), reps=10
         )
+        sum_ms = cuda_ms(lambda: gather_sum_rows(rows, table), reps=10)
+        both_ms = cuda_ms(
+            lambda: kernel_grads(idx, plain_in, tiles, T_k, last, g_img, g_t, table), reps=10
+        )
+        acc = torch.zeros_like(summed)
+        library_ms = cuda_ms(lambda: acc.index_add_(0, gidx, rows), reps=10)
+        plain_sum_ms = cuda_ms(lambda: gather_sum_rows_plain(rows, table), reps=3)
         plain_fwd_ms = cuda_ms(
-            lambda: blend_tiles_plain(*idx, *plain_in, *tiles, PLAIN_CHUNK, PLAIN_MAX_CHUNKS), reps=2
+            lambda: blend_tiles_plain(*idx, *plain_in, *tiles, PLAIN_CHUNK, PLAIN_MAX_CHUNKS,
+                                      table), reps=2
         )
     plain_bwd_ms = cuda_ms(
         lambda: torch.autograd.grad(out_p, blend_in, retain_graph=True), reps=2
     )
 
     # Bounds from this run's inputs: each input read once, each output
-    # written once; the (pixel, pair) work these inputs need.
+    # written once; the (pixel, pair) work these inputs need. The backward
+    # writes one row of 6 + CH floats per pair, which the sum reads back
+    # (the rows the table names, once each) with the table.
     with torch.no_grad():
         work = pair_work(idx, plain_in, tiles, cap, last)
     n_pairs = bins.gauss_idx.shape[0]
     per_gauss = v * n * (6 + ch) * 4
+    pair_rows = n_pairs * (6 + ch) * 4
+    named = int((table >= 0).sum())
     pixels = T_k.numel()
     ranges = 2 * bins.tile_start.numel() * 4
     fwd_bytes = 4 * n_pairs + ranges + per_gauss + pixels * (ch + 2) * 4
-    bwd_bytes = 4 * n_pairs + ranges + per_gauss + pixels * (ch + 3) * 4 + per_gauss
+    bwd_bytes = 4 * n_pairs + ranges + per_gauss + pixels * (ch + 3) * 4 + pair_rows
+    sum_bytes = table.numel() * 4 + named * (6 + ch) * 4 + per_gauss
 
     def bound(nbytes, ops):
         t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
@@ -653,18 +774,26 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
     fwd_ops = (work["fwd_eval"] * OPS_ALPHA + work["live"] * OPS_FWD_LIVE(ch)
                + work["stops"] * OPS_FWD_STOP)
     bwd_ops = work["bwd_eval"] * OPS_ALPHA + work["live"] * OPS_BWD_LIVE(ch)
+    sum_ops = named * (6 + ch)
     fwd_bound = bound(fwd_bytes, fwd_ops)
     bwd_bound = bound(bwd_bytes, bwd_ops)
+    sum_bound = bound(sum_bytes, sum_ops)
+    both_bound = bound(bwd_bytes + sum_bytes, bwd_ops + sum_ops)
     log("  pixel-pairs: " + ", ".join(f"{k} {val}" for k, val in work.items())
-        + f"; fwd {fwd_bytes} B, {fwd_ops} ops; bwd {bwd_bytes} B, {bwd_ops} ops")
+        + f"; fwd {fwd_bytes} B, {fwd_ops} ops; bwd {bwd_bytes} B, {bwd_ops} ops; "
+        f"gather_sum {sum_bytes} B, {sum_ops} ops")
     per_step = bwd_shuffles(ch)
     shuffles = [work["warp_live"] * s for s in per_step]
     log(f"  backward (warp, pair) steps with a live lane: {work['warp_live']}; warp shuffles "
         f"to sum their {6 + ch} gradient values: {shuffles[0]} by a butterfly per value "
         f"({per_step[0]} a step), {shuffles[1]} by the reduce-scatter ({per_step[1]} a step)")
-    log(f"  blend_fwd {fwd_ms:.3f} ms (plain {plain_fwd_ms:.1f} ms, bound {fwd_bound[0]:.4f} ms "
-        f"by {fwd_bound[1]}); blend_bwd {bwd_ms:.3f} ms (plain {plain_bwd_ms:.1f} ms, "
-        f"bound {bwd_bound[0]:.4f} ms by {bwd_bound[1]})")
+    log(f"  blend_fwd {fwd_ms:.4f} ms (plain {plain_fwd_ms:.1f} ms, bound {fwd_bound[0]:.4f} ms "
+        f"by {fwd_bound[1]}); blend_bwd {bwd_ms:.4f} ms (bound {bwd_bound[0]:.4f} ms by "
+        f"{bwd_bound[1]}); gather_sum_rows {sum_ms:.4f} ms (plain {plain_sum_ms:.3f} ms, bound "
+        f"{sum_bound[0]:.4f} ms by {sum_bound[1]}; index_add_ {library_ms:.4f} ms, max abs "
+        f"{sum_err:.2e} from it); the backward, both kernels, {both_ms:.4f} ms (plain "
+        f"{plain_bwd_ms:.1f} ms, bound {both_bound[0]:.4f} ms by {both_bound[1]}), against "
+        f"{FUSED_BWD_MS} ms for the fused atomic kernel it replaces")
     return {
         "n_pairs": n_pairs,
         "num_culled_pairs": int(bins.num_culled_pairs),
@@ -675,6 +804,14 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
                     bound_ms=fwd_bound[0], bound_by=fwd_bound[1]),
         "bwd": dict(max_abs_err=bwd_abs, max_rel_err=bwd_rel, ms=bwd_ms,
                     plain_ms=plain_bwd_ms, bound_ms=bwd_bound[0], bound_by=bwd_bound[1]),
+        "gather_sum": dict(max_abs_err=0.0 if sum_equal else float("inf"), ms=sum_ms,
+                           plain_ms=plain_sum_ms, bound_ms=sum_bound[0],
+                           bound_by=sum_bound[1], library_ms=library_ms,
+                           library_max_abs_err=sum_err),
+        "backward": dict(ms=both_ms, bound_ms=both_bound[0], bound_by=both_bound[1],
+                         fused_atomic_ms=FUSED_BWD_MS),
+        "rerun": lambda: kernel_grads(idx, plain_in, tiles, T_k, last, g_img, g_t, table)[0],
+        "grads": cmp["grads"],
     }
 
 
@@ -901,16 +1038,23 @@ def main_attack_config(out_dir: str):
 
 
 def launch_counts() -> dict:
-    from gsattack_torch.ops import blend, gather
+    from gsattack_torch.ops import blend, gather, gather_sum
 
     return {"fwd": blend.FWD_LAUNCHES, "bwd": blend.BWD_LAUNCHES,
-            "gather": gather.GATHER_LAUNCHES}
+            "gather_sum": gather_sum.GATHER_SUM_LAUNCHES, "gather": gather.GATHER_LAUNCHES}
+
+
+def fewest_blend_launches(n: dict) -> int:
+    """The fewest launches of the blend's kernels in `launch_counts()`'s
+    counts: the forward, the backward and its per-gaussian sum."""
+    return min(n["fwd"], n["bwd"], n["gather_sum"])
 
 
 def zero_launch_counts() -> None:
-    from gsattack_torch.ops import blend, gather
+    from gsattack_torch.ops import blend, gather, gather_sum
 
     blend.FWD_LAUNCHES = blend.BWD_LAUNCHES = gather.GATHER_LAUNCHES = 0
+    gather_sum.GATHER_SUM_LAUNCHES = 0
 
 
 def iteration_rate(stamps) -> float:
@@ -920,9 +1064,10 @@ def iteration_rate(stamps) -> float:
     return (len(stamps) - 1) / (stamps[-1] - stamps[0])
 
 
-def toy_dagger(scene, ext, device, mesh=None, pgd_iters=None):
+def toy_dagger(scene, ext, device, mesh=None, pgd_iters=None, overrides=None):
     """Phase 4's `run_dagger` (toy head), on `mesh` when given, for
-    `pgd_iters` PGD iterations when given (else phase 4's 7), with the
+    `pgd_iters` PGD iterations when given (else phase 4's 7), with
+    `overrides` of its `AttackConfig` when given, with the
     launch counts set to 0 just before and read just after: (result, each
     logged line with its host time, launches). `run_dagger` logs one
     "Iteration:" line per PGD iteration, after the loss has come back to
@@ -942,6 +1087,7 @@ def toy_dagger(scene, ext, device, mesh=None, pgd_iters=None):
         cfg = main_attack_config(out_dir)
         if pgd_iters is not None:  # the per-batch budget takes one iteration
             cfg = dataclasses.replace(cfg, max_iters=pgd_iters + 1)
+        cfg = dataclasses.replace(cfg, **(overrides or {}))
         res = run_dagger(scene, [ext], det, cfg, mesh=mesh,
                          log=lambda line: lines.append((time.perf_counter(), line)))
         torch.cuda.synchronize()
@@ -960,16 +1106,17 @@ def phase_main_path(scene, cams, ext, pairs, device):
 
     det = ToyDetector(num_classes=8, seed=0, device=device)
     t0 = time.perf_counter()
-    res, lines, launches = toy_dagger(scene, ext, device)
+    with deterministic_cudnn():
+        res, lines, launches = toy_dagger(scene, ext, device)
     wall = time.perf_counter() - t0
     for _, line in lines:
         log("  " + line)
     losses = np.asarray(res.losses)
     log(f"phase 4  run_dagger: {len(losses)} PGD iterations in {wall:.2f} s (with set-up, "
-        f"benign and eval renders); launches fwd {launches['fwd']}, bwd {launches['bwd']}, "
-        f"gather {launches['gather']}")
-    if not (launches["fwd"] > 0 and launches["bwd"] > 0):
-        raise AssertionError(f"main path did not launch both kernels: {launches}")
+        f"benign and eval renders, cuDNN deterministic); launches fwd {launches['fwd']}, bwd "
+        f"{launches['bwd']}, gather_sum {launches['gather_sum']}, gather {launches['gather']}")
+    if not (launches["fwd"] > 0 and launches["bwd"] > 0 and launches["gather_sum"] > 0):
+        raise AssertionError(f"main path did not launch the blend's kernels: {launches}")
     if len(losses) == 0 or not np.isfinite(losses).all():
         raise AssertionError(f"losses not finite: {losses}")
     # Host wall time of run_dagger's own loop (loss render, backward, step,
@@ -1019,6 +1166,94 @@ def phase_main_path(scene, cams, ext, pairs, device):
     return {"launches": launches, "losses": losses.tolist(), "rates": rates,
             "iterations": len(losses), "pairs_per_gaussian": pairs, "profile": profile,
             "stages_ms": stages, "f_dc": res.scene.f_dc.cpu()}
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block (and its autotuner
+    off): with its defaults, the toy head's stride-2 convolutions take a
+    backward-data algorithm whose sums change from run to run."""
+    import torch
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
+def stage_repeats(scene, cams, pairs, bg, boxes, device) -> dict:
+    """One loss-and-gradient of phase 4's attack twice: whether each stage
+    (the render, the toy head's loss, its image gradient, the f_dc
+    gradient through the blend) came out equal (`torch.equal`), and the
+    largest difference."""
+    import torch
+
+    from gsattack_torch.attack import render_views
+    from gsattack_torch.models import ToyDetector
+
+    from torch.profiler import ProfilerActivity, profile
+
+    det = ToyDetector(num_classes=8, seed=0, device=device)
+    got = []
+    for _ in range(2):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in scene.params().items()}
+        imgs = render_views(scene.with_params(leaves), cams, bg, pairs, MAX_CHUNKS, CHUNK)
+        im = imgs.detach().requires_grad_(True)
+        loss = det.loss(im, 2, boxes)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            (d_img,) = torch.autograd.grad(loss, [im])
+            torch.cuda.synchronize()
+        (d_f_dc,) = torch.autograd.grad(imgs, [leaves["f_dc"]], d_img)
+        got.append({"render": imgs.detach(), "loss": loss.detach(), "d_image": d_img,
+                    "d_f_dc": d_f_dc})
+    out = {k: {"equal": torch.equal(got[0][k], got[1][k]),
+               "max_abs": float((got[0][k] - got[1][k]).abs().max())} for k in got[0]}
+    # The cuDNN kernels of the head's backward (its convolutions' image
+    # gradients), by name.
+    out["cudnn_kernels"] = sorted({a.key[:70] for a in prof.key_averages()
+                                   if "cudnn" in a.key or "dgrad" in a.key.lower()})
+    return out
+
+
+def phase_reproducible(scene, cams, ext, pairs, shapes: dict, main: dict, device) -> dict:
+    """Phase 4b: the backward (blend_bwd, then gather_sum_rows) twice on
+    phase 3's inputs, equal to phase 3's call (`torch.equal`); one
+    loss-and-gradient of phase 4's attack twice, stage by stage, with
+    cuDNN's defaults and with its deterministic algorithms (which stage
+    varies); then phase 4's `run_dagger` again, its losses and final f_dc
+    equal to phase 4's (`torch.equal`) after all its PGD iterations."""
+    import numpy as np
+    import torch
+
+    again = [shapes["rerun"]() for _ in range(2)]
+    bwd_equal = all(torch.equal(a, b) for run in again for a, b in zip(run, shapes["grads"]))
+    bg = torch.zeros(3, device=device)
+    boxes = np.tile(np.array([[200, 200, 600, 600]], np.float32), (4, 1))
+    stages = {"cudnn_default": stage_repeats(scene, cams, pairs, bg, boxes, device)}
+    with deterministic_cudnn():
+        stages["cudnn_deterministic"] = stage_repeats(scene, cams, pairs, bg, boxes, device)
+        res = toy_dagger(scene, ext, device)[0]
+    losses_equal = list(res.losses) == list(main["losses"])
+    f_dc = res.scene.f_dc.cpu()
+    f_dc_equal = torch.equal(f_dc, main["f_dc"])
+    out = {"backward_equal": bwd_equal, "stages": stages, "losses_equal": losses_equal,
+           "f_dc_equal": f_dc_equal, "iterations": len(res.losses),
+           "f_dc_max_abs": float((f_dc - main["f_dc"]).abs().max())}
+    log(f"phase 4b reproducibility: the backward three times on phase 3's inputs "
+        f"{'equal' if bwd_equal else 'NOT equal'}; one loss-and-gradient twice, stage by stage "
+        f"(equal?): " + "; ".join(
+            f"{mode} " + ", ".join(f"{k} {v['equal']} ({v['max_abs']:.2e})" for k, v in st.items()
+                                   if k != "cudnn_kernels")
+            + f", the head's cuDNN backward kernels {st['cudnn_kernels']}"
+            for mode, st in stages.items())
+        + f"; run_dagger again ({len(res.losses)} PGD iterations): losses equal {losses_equal}, "
+        f"f_dc equal {f_dc_equal} (max abs {out['f_dc_max_abs']:.2e})")
+    if not (bwd_equal and losses_equal and f_dc_equal):
+        raise AssertionError(f"phase 4b: not reproducible: {out}")
+    return out
 
 
 def detector_heads(name: str, det, images):
@@ -1177,7 +1412,6 @@ def phase_detectors(scene, cams, ext, pairs, device) -> dict:
     from gsattack_torch.attack import render_views, run_dagger
     from gsattack_torch.attack.silhouette import silhouette_bbox
     from gsattack_torch.models import load_detector
-    from gsattack_torch.ops import blend
 
     bg = torch.zeros(3, device=device)
     with torch.no_grad():
@@ -1192,11 +1426,11 @@ def phase_detectors(scene, cams, ext, pairs, device) -> dict:
         with tempfile.TemporaryDirectory() as out_dir:
             cfg = detector_attack_config(name, pairs, out_dir)
             lines = []
-            blend.FWD_LAUNCHES = blend.BWD_LAUNCHES = 0
+            zero_launch_counts()
             res = run_dagger(scene, [ext], det, cfg,
                              log=lambda line: lines.append((time.perf_counter(), line)))
             torch.cuda.synchronize()
-            launches = {"fwd": blend.FWD_LAUNCHES, "bwd": blend.BWD_LAUNCHES}
+            launches = launch_counts()
         stamps = [t for t, line in lines if line.startswith("Iteration:")]
         losses = np.asarray(res.losses)
         if not (launches["fwd"] > 0 and launches["bwd"] > 0):
@@ -1530,7 +1764,6 @@ def phase_train(device) -> dict:
     from gsattack_torch.core.sh import sh_to_rgb_dc
     from gsattack_torch.io import load_scene_info
     from gsattack_torch.io.checkpoint import restore_checkpoint
-    from gsattack_torch.ops import blend
     from gsattack_torch.ops.knn import mean_knn_dist2
     from gsattack_torch.render import render
     from gsattack_torch.train import Trainer
@@ -1597,7 +1830,7 @@ def phase_train(device) -> dict:
         f"held-out view {HELD_OUT} (PSNR {psnr_before:.3f} dB before); capacity "
         f"{trainer.state.scene.num_points}")
     stamps = []
-    blend.FWD_LAUNCHES = blend.BWD_LAUNCHES = 0
+    zero_launch_counts()
     with tempfile.TemporaryDirectory() as ck:
         log_cb = lambda i, l: stamps.append((time.perf_counter(), i, l))  # noqa: E731
         trainer.fit(cams, train_gts, iterations=TRAIN_CHECKPOINT_EVERY, log=log_cb,
@@ -1606,7 +1839,7 @@ def phase_train(device) -> dict:
         trainer.fit(cams, train_gts, iterations=cfg.iterations, log=log_cb,
                     checkpoint_dir=ck, checkpoint_every=TRAIN_CHECKPOINT_EVERY)
         torch.cuda.synchronize()
-        launches = {"fwd": blend.FWD_LAUNCHES, "bwd": blend.BWD_LAUNCHES}
+        launches = launch_counts()
         restored = {s: restore_checkpoint(os.path.join(ck, f"step_{s}"), target=snapshot)
                     for s in (TRAIN_CHECKPOINT_EVERY, cfg.iterations)}
     final = trainer.state
@@ -1644,7 +1877,7 @@ def phase_train(device) -> dict:
         "held-out PSNR rose": psnr_after > psnr_before,
         "densify changed the alive count": any(b[0] != a[0] for _, _, b, a, _ in events),
         "SH degree 3": final.scene.active_sh_degree == 3,
-        "launches": min(launches.values()) >= cfg.iterations,
+        "launches": fewest_blend_launches(launches) >= cfg.iterations,
         "checkpoint restored equal": restore_equal,
     }
     if not all(checks.values()):
@@ -1676,12 +1909,11 @@ def phase_cloak(trained: dict, device) -> dict:
     from gsattack_torch.attack.cloak import CloakConfig, run_cloak
     from gsattack_torch.attack.silhouette import silhouette_bbox
     from gsattack_torch.models import load_detector
-    from gsattack_torch.ops import blend
 
     det = load_detector("yolov8", seed=0, device=device)
     ccfg = CloakConfig(target=2, poison_view_indices=CLOAK_VIEWS)
     lines = []
-    blend.FWD_LAUNCHES = blend.BWD_LAUNCHES = 0
+    zero_launch_counts()
     scene, poisoned = run_cloak(
         trained["init"], trained["cams"], trained["gts"], det, ccfg, train_cfg=trained["cfg"],
         iterations=CLOAK_ITERS, cameras_extent=trained["extent"],
@@ -1689,7 +1921,7 @@ def phase_cloak(trained: dict, device) -> dict:
     )
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = {"fwd": blend.FWD_LAUNCHES, "bwd": blend.BWD_LAUNCHES}
+    launches = launch_counts()
     stamps = [t for t, _ in lines]
     poison_s = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
     retrain_it_s = CLOAK_ITERS / (t_end - stamps[-1])
@@ -1738,7 +1970,7 @@ def phase_cloak(trained: dict, device) -> dict:
     bad = [r["view"] for r in rows
            if not (0 < r["linf"] <= ccfg.epsilon + 1e-6 and r["min"] >= 0 and r["max"] <= 1
                    and r["loss_poisoned"] < r["loss_clean"])]
-    if bad or not finite or min(launches.values()) < CLOAK_ITERS:
+    if bad or not finite or fewest_blend_launches(launches) < CLOAK_ITERS:
         raise AssertionError(f"phase 7c gates failed: views {bad}, scene finite {finite}, "
                              f"launches {launches}")
     return {"poison_s_per_view": poison_s, "retrain_it_s": retrain_it_s, "launches": launches,
@@ -1817,16 +2049,15 @@ def run_cli(argv: list, launches: dict, name: str, device: bool = True
     import torch
 
     from gsattack_torch import cli
-    from gsattack_torch.ops import blend
 
     torch.cuda.synchronize()
-    blend.FWD_LAUNCHES = blend.BWD_LAUNCHES = 0
+    zero_launch_counts()
     t0 = time.perf_counter()
     with StdoutLines() as out:
         rc = cli.main([*argv, "--device", "cuda"] if device else argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    got = {"fwd": blend.FWD_LAUNCHES, "bwd": blend.BWD_LAUNCHES}
+    got = launch_counts()
     launches[name] = {k: launches.get(name, {}).get(k, 0) + v for k, v in got.items()}
     log(f"  cli {argv[0]}: rc {rc} in {wall:.2f} s; launches fwd {got['fwd']}, "
         f"bwd {got['bwd']}")
@@ -1912,7 +2143,7 @@ def phase_cli(device) -> dict:
             f"({CLI_TRAIN_ITERS} steps, set-up and the PLY included); {summary['train']}")
         if not (rc == 0 and trained is not None and all(
                 bool(torch.isfinite(v).all()) for v in trained.params().values())
-                and min(launches["train"].values()) >= CLI_TRAIN_ITERS):
+                and fewest_blend_launches(launches["train"]) >= CLI_TRAIN_ITERS):
             raise AssertionError(f"phase 8b gates failed: {summary['train']}, {launches}")
 
         # 8c: attack, mode C: the trained scene attacked over a background.
@@ -1956,7 +2187,7 @@ def phase_cli(device) -> dict:
                                                          == CLI_ATTACK_ITERS - 1)
                 and combined == trained.num_points + CLI_BACKGROUND_SPLATS
                 and bool((boxes[:, 2:] > boxes[:, :2]).all())
-                and min(launches["attack"].values()) > 0):
+                and fewest_blend_launches(launches["attack"]) > 0):
             raise AssertionError(f"phase 8c gates failed: {summary['attack']}, {launches}")
         adv_model = os.path.join(work, "adv_model")
         save_scene_ply(res.scene, os.path.join(adv_model, "point_cloud", "iteration_1",
@@ -2058,14 +2289,15 @@ MESH_TRAIN_SHAPE = (1, 2)  # 9b
 MESH_TRAIN_ITERS = 150
 GATE_MESH_LOSS = 1e-4
 GATE_MESH_F_DC = 1e-5  # abs, as the JAX package's test_dagger_with_mesh
-# The card's attack is not bit-reproducible past a few PGD steps:
-# `blend_bwd` adds each gaussian's gradient with global atomics, and the
-# toy head's ReLUs can turn an ulp into another step for a few splats
-# (phase 4's own reruns end up to 4.8e-4 apart in f_dc after 7). So 9a
-# holds f_dc to the unsharded attack after the first 3 PGD iterations,
-# as the JAX package's test_dagger_with_mesh does, and prints the
-# distance of two unsharded runs there (the check's premise) and the
-# mesh's distance from phase 4's after 7.
+# The mesh's attack sums each gaussian's gradient over the bands and view
+# blocks (a reduce-scatter) in another order than the unsharded attack
+# does, and the toy head's ReLUs can turn an ulp into another step for a
+# few splats, so its trajectory may leave the unsharded one (which is
+# itself reproducible bit for bit: phase 4b). So 9a holds f_dc to the
+# unsharded attack after the first 3 PGD iterations, as the JAX package's
+# test_dagger_with_mesh does, and prints the distance of two unsharded
+# runs there (the check's premise) and the mesh's distance from phase 4's
+# after 7.
 MESH_F_DC_ITERS = 3
 GATE_MESH_TRAJECTORY = 1e-3  # 9b's 150 losses, mesh against Trainer(), max rel
 
@@ -2186,9 +2418,10 @@ def mesh_dagger_summary(a: list, shape, ref_losses, ref_f_dc, short_ref) -> tupl
 
 
 def unlaunched(launches: list) -> list:
-    """The ranks that did not launch both blend kernels, by their counts."""
+    """The ranks that did not launch the blend's kernels (the forward, the
+    backward and its per-gaussian sum), by their counts."""
     return [f"blend kernels not launched on rank {i}"
-            for i, n in enumerate(launches) if not (n["fwd"] and n["bwd"])]
+            for i, n in enumerate(launches) if not fewest_blend_launches(n)]
 
 
 def rank_9b(info, path: str, shape: tuple[int, int]) -> dict:
@@ -2511,6 +2744,166 @@ def phase_profile_viewer(scene, cams, pairs, device) -> dict:
             "stage_s": dict(timer.totals)}
 
 
+# Phase 11: the static caps of the reference's Pallas route on the card.
+AUTO_CAPS = dict(backend="pallas", pairs_per_gaussian=-1, rect_candidates=-1,
+                 pairs_budget=-1, compact_budget=-1, tier_split=-1, heavy_budget=-1)
+CAPS_TRAIN_ITERS = 50
+
+
+def cap_drops(proj, width: int, height: int, pairs: int, rect: int, caps: dict) -> dict:
+    """The pairs each cap of `caps` drops from one view's binning, each cap
+    alone: the tiered bin's (culled beyond the untiered binning's),
+    pairs_budget's and compact_budget's; and all of them together."""
+    from gsattack_torch.ops.raster import bin_gaussians
+
+    def bins(**kw):
+        return bin_gaussians(proj.mean2d, proj.depth, proj.radius_tight, width, height, pairs,
+                             conic=proj.conic, opacity=proj.opacity, rect_candidates=rect, **kw)
+
+    base = int(bins().num_culled_pairs)
+    tier = bins(tier_split=caps["tier_split"], heavy_budget=caps["heavy_budget"])
+    together = bins(**caps)
+    return {"tier": int(tier.num_culled_pairs) - base,
+            "pairs_budget": int(bins(pairs_budget=caps["pairs_budget"]).num_dropped_pairs),
+            "compact_budget": int(bins(compact_budget=caps["compact_budget"]).num_dropped_pairs),
+            "together": int(together.num_culled_pairs) - base + int(together.num_dropped_pairs)}
+
+
+def phase_caps(scene, cams, ext, main: dict, train_inputs: dict, device) -> dict:
+    """Phase 11: the static caps. (a) Phase 4's `run_dagger` on the
+    "pallas" route with every cap at -1 (sized by the probes): the sizes,
+    no pair dropped at them, the losses and final f_dc against phase 4's
+    uncapped run (1e-4 rel and 1e-5 abs, as phase 9a's; bit-equal is
+    expected and reported), its PGD it/s. (b) On view 0, pairs_budget,
+    compact_budget and heavy_budget (at the probe's tier_split, or 1
+    where the tier does not pay) at half their probed sizes: each cap's
+    dropped pairs on the card above 0 and equal to the port's binning on
+    the CPU, and both kernels against the plain version under all of them
+    with phase 3's gates. (c) `Trainer` with `auto_caps`-sized caps on the
+    "pallas" route for phase 7b's first 50 steps: finite losses, every
+    blend kernel launched."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gsattack_torch.ops.project import project, stack_projections
+    from gsattack_torch.ops.raster import (
+        _tiles, auto_caps, auto_compact_budget, auto_heavy_budget, auto_pair_caps,
+        auto_pairs_budget, auto_tier_caps, bin_views, rasterize_views, resolve_caps,
+    )
+    from gsattack_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    summary, failed = {}, []
+    w, h = cams.width, cams.height
+    # (a)
+    with deterministic_cudnn():
+        res, lines, launches = toy_dagger(scene, ext, device, overrides=AUTO_CAPS)
+    with torch.no_grad():
+        projs = [project(scene, cams.view_at(i)) for i in range(cams.num_views)]
+        caps = resolve_caps([(p, w, h) for p in projs], *(-1,) * 6, log=lambda *_: None)
+        out = rasterize_views(stack_projections(projs), w, h, torch.zeros(3, device=device),
+                              caps["pairs_per_gaussian"], CHUNK, MAX_CHUNKS,
+                              rect_candidates=caps["rect_candidates"],
+                              **{k: v for k, v in caps.items() if k not in
+                                 ("pairs_per_gaussian", "rect_candidates")}, backend="pallas")
+    losses = np.asarray(res.losses)
+    ref = np.asarray(main["losses"])
+    f_dc = res.scene.f_dc.cpu()
+    stamps = [t for t, line in lines if line.startswith("Iteration:")]
+    a = {"caps": caps, "sized": [line for _, line in lines if line.startswith("[Info] Auto")],
+         "num_truncated_pairs": int(out["num_truncated_pairs"]),
+         "num_culled_pairs": int(out["num_culled_pairs"]),
+         "losses": losses.tolist(), "losses_equal": losses.tolist() == ref.tolist(),
+         "loss_max_rel_err": float(np.max(np.abs(losses - ref) / np.abs(ref)))
+         if len(losses) == len(ref) else float("inf"),
+         "f_dc_equal": torch.equal(f_dc, main["f_dc"]),
+         "f_dc_max_abs_err": float((f_dc - main["f_dc"]).abs().max()),
+         "pgd_it_s": iteration_rate(stamps), "launches": launches}
+    summary["a"] = a
+    log(f"phase 11a run_dagger, backend pallas, every cap -1: {a['sized']}; at these caps "
+        f"{a['num_truncated_pairs']} pairs truncated, {a['num_culled_pairs']} culled over the 4 "
+        f"views; {len(losses)} PGD iterations, losses equal to phase 4's {a['losses_equal']} "
+        f"(max rel {a['loss_max_rel_err']:.2e}), f_dc equal {a['f_dc_equal']} (max abs "
+        f"{a['f_dc_max_abs_err']:.2e}); PGD {a['pgd_it_s']:.3f} it/s (phase 4: "
+        f"{main['rates']['pgd_it_s']:.3f}); launches {launches}")
+    if not (a["num_truncated_pairs"] == 0 and a["loss_max_rel_err"] <= GATE_MESH_LOSS
+            and a["f_dc_max_abs_err"] <= GATE_MESH_F_DC):
+        failed.append("11a")
+    failed += [f"11a {f}" for f in unlaunched([launches])]
+
+    # (b)
+    with torch.no_grad():
+        proj = project(scene, cams.view_at(0))
+        pairs, rect = auto_pair_caps(proj, w, h)
+        ts = auto_tier_caps(proj, w, h, pairs, rect)[0] or 1
+        half = {"tier_split": ts,
+                "heavy_budget": auto_heavy_budget(proj, w, h, pairs, rect, ts) // 2,
+                "pairs_budget": auto_pairs_budget(proj, w, h, pairs, rect_candidates=rect) // 2,
+                "compact_budget": auto_compact_budget(proj, w, h, pairs,
+                                                      rect_candidates=rect) // 2}
+        card = cap_drops(proj, w, h, pairs, rect, half)
+        cpu = cap_drops(proj._replace(**{k: v.cpu() for k, v in proj._asdict().items()}),
+                        w, h, pairs, rect, half)
+        stacked = stack_projections([proj])
+        bins = bin_views(stacked, w, h, pairs, rect, **half)
+    chans = torch.cat([stacked.color, stacked.obj], dim=-1)
+    blend_in = [x.detach().contiguous().requires_grad_(True)
+                for x in (stacked.mean2d, stacked.conic, stacked.opacity, chans)]
+    cmp = kernels_vs_plain((bins.gauss_idx, bins.tile_start, bins.tile_end), blend_in,
+                           _tiles(w, h), CHUNK * MAX_CHUNKS, slot_table=bins.slot_table)
+    b = {"pairs_per_gaussian": pairs, "rect_candidates": rect, "caps": half,
+         "dropped_card": card, "dropped_cpu": cpu, "image_max_abs_err": cmp["fwd_err"],
+         "grad_max_rel_err": cmp["bwd_rel"]}
+    summary["b"] = b
+    log(f"phase 11b view 0 at half the probed caps {half} (pairs_per_gaussian {pairs}, "
+        f"rect_candidates {rect}): dropped pairs on the card {card}, by the CPU's binning {cpu}; "
+        f"kernel vs plain image/T max abs {cmp['fwd_err']:.3e}, gradients max rel "
+        + ", ".join(f"{k} {e:.3e}" for k, e in cmp["bwd_rel"].items()))
+    if not (card == cpu and min(card.values()) > 0 and cmp["fwd_err"] <= GATE_IMAGE
+            and max(cmp["bwd_rel"].values()) <= GATE_GRAD):
+        failed.append("11b")
+    del cmp, blend_in, bins
+
+    # (c)
+    init = train_inputs["init"].to(device)
+    exts, gts = train_inputs["exts"], [g.to(device) for g in train_inputs["gts"]]
+    tcams = [e.build(device=device) for e in exts]
+    with torch.no_grad():
+        pairs, rect, budget, compact, (ts, hb) = auto_caps(project(init, tcams[0]),
+                                                           tcams[0].width, tcams[0].height)
+    cfg = dataclasses.replace(train_inputs["cfg"], iterations=CAPS_TRAIN_ITERS, backend="pallas",
+                              pairs_per_gaussian=pairs, rect_candidates=rect,
+                              pairs_budget=budget, compact_budget=compact, tier_split=ts,
+                              heavy_budget=hb)
+    trainer = Trainer(init, cfg, cameras_extent=train_inputs["extent"], device=device)
+    tstamps = []
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    trainer.fit(tcams, gts, iterations=CAPS_TRAIN_ITERS,
+                log=lambda i, l: tstamps.append((time.perf_counter(), l)))
+    torch.cuda.synchronize()
+    tl = launch_counts()
+    tlosses = [l for _, l in tstamps]
+    c = {"caps": dict(pairs_per_gaussian=pairs, rect_candidates=rect, pairs_budget=budget,
+                      compact_budget=compact, tier_split=ts, heavy_budget=hb),
+         "steps": len(tlosses), "first_loss": tlosses[0], "last_loss": tlosses[-1],
+         "train_it_s": iteration_rate([t for t, _ in tstamps[1:]]), "launches": tl}
+    summary["c"] = c
+    log(f"phase 11c Trainer, backend pallas, auto_caps {c['caps']}: {len(tlosses)} steps, loss "
+        f"{tlosses[0]:.5f} -> {tlosses[-1]:.5f}, {c['train_it_s']:.3f} it/s; launches {tl}")
+    if not (len(tlosses) == CAPS_TRAIN_ITERS and np.isfinite(tlosses).all()
+            and tl["fwd"] >= CAPS_TRAIN_ITERS and tl["bwd"] >= CAPS_TRAIN_ITERS
+            and tl["gather_sum"] >= CAPS_TRAIN_ITERS):
+        failed.append("11c")
+    summary["phase_s"] = time.perf_counter() - t0
+    log(f"phase 11 in {summary['phase_s']:.1f} s")
+    if failed:
+        raise AssertionError(f"phase 11 gates failed: {failed}: {summary}")
+    return summary
+
+
 def main() -> int:
     try:
         import torch
@@ -2546,6 +2939,8 @@ def main() -> int:
     scene, ext, cams, pairs = main_shapes(device)
     shapes = phase_main_shapes(scene, cams, pairs, _tiles)
     main = phase_main_path(scene, cams, ext, pairs, device)
+    phase_reproducible(scene, cams, ext, pairs, shapes, main, device)
+    del shapes["rerun"], shapes["grads"]
     gathered = phase_gather(device)
     detectors = phase_detectors(scene, cams, ext, pairs, device)
     del scene, cams
@@ -2556,7 +2951,7 @@ def main() -> int:
     log("phase 7 summary " + json.dumps({"train_vs_cpu": parity, "train": trained["summary"],
                                          "cloak": cloak}))
     train_launches = {k: {"train": trained["summary"]["launches"][k],
-                          "cloak": cloak["launches"][k]} for k in ("fwd", "bwd")}
+                          "cloak": cloak["launches"][k]} for k in ("fwd", "bwd", "gather_sum")}
     train_inputs = {"init": trained["init"].to("cpu"), "exts": trained["exts"],
                     "gts": [g.cpu() for g in trained["gts"]], "cfg": trained["cfg"],
                     "extent": trained["extent"]}
@@ -2565,15 +2960,17 @@ def main() -> int:
     cli = phase_cli(device)
     log("phase 8 summary " + json.dumps(cli["summary"]))
     cli_launches = {k: {cmd: n[k] for cmd, n in cli["launches"].items() if n[k]}
-                    for k in ("fwd", "bwd")}
+                    for k in ("fwd", "bwd", "gather_sum")}
     torch.cuda.empty_cache()
     mesh = phase_mesh(main, detectors, train_inputs, device)
     log(f"phase 9 summary ({smi}) " + json.dumps(mesh))
     mesh_launches = {k: {p: [n[k] for n in mesh[p]["launches"]] for p in ("9a", "9b", "9c")}
-                     for k in ("fwd", "bwd", "gather")}
+                     for k in ("fwd", "bwd", "gather_sum", "gather")}
     scene, ext, cams, pairs = main_shapes(device)
     tools = phase_profile_viewer(scene, cams, pairs, device)
     log("phase 10 summary " + json.dumps(tools))
+    caps = phase_caps(scene, cams, ext, main, train_inputs, device)
+    log("phase 11 summary " + json.dumps(caps))
     w16 = gathered["widths"][16]
 
     source = "gsattack_torch/csrc/blend.cu"
@@ -2591,7 +2988,15 @@ def main() -> int:
          "mesh_launches": mesh_launches["bwd"],
          **{k: shapes["bwd"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                            "bound_by")},
-         "library_ms": None},
+         "library_ms": None, "with_gather_sum_ms": shapes["backward"]["ms"],
+         "fused_atomic_ms": FUSED_BWD_MS},
+        {"name": "gather_sum_rows", "route": "cuda", "source": "gsattack_torch/csrc/gather_sum.cu",
+         "replaces": "gsattack/ops/pallas_blend.py:575", "launches": main["launches"]["gather_sum"],
+         "training_launches": train_launches["gather_sum"],
+         "cli_launches": cli_launches["gather_sum"], "mesh_launches": mesh_launches["gather_sum"],
+         "caps_launches": caps["a"]["launches"]["gather_sum"],
+         **{k: shapes["gather_sum"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                  "bound_by", "library_ms")}},
         {"name": "gather_rows", "route": "cuda", "source": "gsattack_torch/csrc/gather.cu",
          "replaces": "gsattack/ops/pallas_gather.py:35", "launches": main["launches"]["gather"],
          "micro_bench_launches": gathered["micro_bench_launches"],

@@ -30,7 +30,7 @@ from ..core.camera import Camera, CameraExtrinsics, stack_cameras
 from ..core.scene import GaussianScene
 from ..models.base import Detector
 from ..ops.project import project, stack_projections
-from ..ops.raster import TILE, auto_pairs_per_gaussian, rasterize_views
+from ..ops.raster import BACKENDS, CAP_FIELDS, TILE, rasterize_views, resolve_caps
 from ..parallel.mesh import SPLATS_AXIS, VIEWS_AXIS, axis_size
 from ..parallel.shard import (
     measure_tile_row_costs,
@@ -42,8 +42,6 @@ from ..parallel.shardings import gather_scene, shard_points, shard_scene
 from ..render import render
 from .pgd import pgd_attack_step
 from .silhouette import silhouette_bbox
-
-_PACK_ONLY = "ROADMAP.md Queue 1 item 6, the tiered bin and the auto_caps probes"
 
 
 @dataclasses.dataclass
@@ -73,16 +71,16 @@ class AttackConfig:
     detector_name: str = "toy"
     output_dir: str = "output"
     preds_dir: Optional[str] = None  # save predict_and_save images when set
-    # -1 sizes it from the largest tile footprint over the attack views.
+    # The static caps (ops/raster.py); -1 sizes each from the attack views
+    # (and the eval overlay scene) as the reference does (`resolve_caps`).
     pairs_per_gaussian: int = 32
     max_chunks: int = 16
     chunk: int = 64
-    # The reference's blend route ("xla" or "pallas"). Here the route
-    # follows the tensors' device, so both values run the same code.
+    # The reference's blend route ("xla" or "pallas"), with its rules for
+    # the caps (`rasterize_views`); the blend follows the tensors' device.
     backend: str = "xla"
-    # The Pallas pack layout's static caps: only 0 is supported.
     pairs_budget: int = 0
-    rect_candidates: int = 0  # -1 alone means 0, as in the reference
+    rect_candidates: int = 0
     compact_budget: int = 0
     tier_split: int = 0
     heavy_budget: int = 0
@@ -113,10 +111,15 @@ def render_views(
     with_objects: bool = True,
     mesh=None,
     band_tiles: tuple | None = None,
+    backend: str = "xla",
+    pairs_budget: int = 0,
+    compact_budget: int = 0,
+    tier_split: int = 0,
+    heavy_budget: int = 0,
 ) -> torch.Tensor:
     """Multi-view render of a stacked camera -> (B, H, W, 3): the scene is
     projected once per view, and the batch is binned and blended in one
-    launch (`rasterize_views`).
+    launch (`rasterize_views`, whose `backend` rules apply the caps).
 
     With a (views, splats) `mesh`, every rank passes the whole scene and
     the same batch: the render runs sharded (`parallel/shard.py`) on this
@@ -124,16 +127,18 @@ def render_views(
     axis does not divide it, and the whole batch comes back on every
     rank, as does the whole scene's gradient. A batch that does not
     divide the views axis renders with views replicated."""
+    caps = dict(backend=backend, pairs_budget=pairs_budget, compact_budget=compact_budget,
+                tier_split=tier_split, heavy_budget=heavy_budget)
     if mesh is not None:
         return render_views_sharded(
             shard_scene(scene, mesh), cams, bg, mesh, pairs_per_gaussian, chunk, max_chunks,
-            rect_candidates, band_tiles, with_objects,
+            rect_candidates, band_tiles, with_objects, **caps,
         )
     proj = stack_projections([project(scene, cams.view_at(i)) for i in range(cams.num_views)])
     return rasterize_views(
         proj, cams.width, cams.height, bg,
         pairs_per_gaussian=pairs_per_gaussian, chunk=chunk, max_chunks=max_chunks,
-        with_objects=with_objects, rect_candidates=rect_candidates,
+        with_objects=with_objects, rect_candidates=rect_candidates, **caps,
     )["render"]
 
 
@@ -148,17 +153,7 @@ def expand_viewpoints(
 
 
 def _check_supported(cfg: AttackConfig) -> None:
-    for field in ("pairs_budget", "compact_budget", "tier_split", "heavy_budget"):
-        if getattr(cfg, field) != 0:
-            raise NotImplementedError(
-                f"AttackConfig.{field}={getattr(cfg, field)}: a static cap of the "
-                f"Pallas pack layout and tiered bin, not ported ({_PACK_ONLY})"
-            )
-    if cfg.pairs_per_gaussian < 0 and cfg.rect_candidates < 0:
-        raise NotImplementedError(
-            f"auto-sizing rect_candidates needs the auto_pair_caps probe ({_PACK_ONLY})"
-        )
-    if cfg.backend not in ("xla", "pallas"):
+    if cfg.backend not in BACKENDS:
         raise ValueError(f"unknown backend {cfg.backend!r}")
 
 
@@ -215,21 +210,19 @@ def run_dagger(
             f"({axis_size(mesh, VIEWS_AXIS)}): views replicated, splats still sharded."
         )
 
-    if cfg.rect_candidates < 0:
-        cfg = dataclasses.replace(cfg, rect_candidates=0)
-    if cfg.pairs_per_gaussian < 0:
-        # Probe the eval overlay scene too: its pair counts exceed the
-        # attacked sub-scene's.
+    # The static caps: -1 sized from the real binned geometry, the max over
+    # the attack views, and over the eval overlay scene too, whose pair
+    # counts exceed the attacked sub-scene's.
+    if min(getattr(cfg, k) for k in CAP_FIELDS) < 0:
         probe_scenes = [scene] + (
             [scene.concat(frozen_scene)] if frozen_scene is not None else []
         )
         with torch.no_grad():
-            pairs = max(
-                auto_pairs_per_gaussian(project(sc, c), c.width, c.height)
-                for sc in probe_scenes for c in built
-            )
-        cfg = dataclasses.replace(cfg, pairs_per_gaussian=pairs)
-        log(f"[Info] Auto-sized pairs_per_gaussian = {pairs}")
+            views_probed = [(project(sc, c), c.width, c.height)
+                            for sc in probe_scenes for c in built]
+            caps = resolve_caps(views_probed, *(getattr(cfg, k) for k in CAP_FIELDS), log=log)
+        del views_probed
+        cfg = dataclasses.replace(cfg, **caps)
 
     # Pair-balanced tile bands for the sharded render: per-tile-row pair
     # costs over a sample of the attack views, split by the exact
@@ -260,16 +253,24 @@ def run_dagger(
     if mask is not None and mesh is not None:
         mask = shard_points(mask, mesh)
 
-    def views_render(sc, cams, background):
+    # The caps each render takes, as the reference passes them: the loss
+    # render all of them, the benign and eval renders (forward only) the
+    # route and pairs_budget.
+    loss_caps = dict(backend=cfg.backend, pairs_budget=cfg.pairs_budget,
+                     compact_budget=cfg.compact_budget, tier_split=cfg.tier_split,
+                     heavy_budget=cfg.heavy_budget)
+    fwd_caps = dict(backend=cfg.backend, pairs_budget=cfg.pairs_budget)
+
+    def views_render(sc, cams, background, caps):
         """The batch from this rank's parameters `sc`."""
         if mesh is not None:
             return render_views_sharded(
                 sc, cams, background, mesh, cfg.pairs_per_gaussian, cfg.chunk,
-                cfg.max_chunks, cfg.rect_candidates, band_tiles,
+                cfg.max_chunks, cfg.rect_candidates, band_tiles, **caps,
             )
         return render_views(
             sc, cams, background, cfg.pairs_per_gaussian, cfg.max_chunks,
-            cfg.chunk, cfg.rect_candidates,
+            cfg.chunk, cfg.rect_candidates, **caps,
         )
 
     def whole(params):
@@ -285,13 +286,13 @@ def run_dagger(
                 out = render(
                     scene, c, black, pairs_per_gaussian=cfg.pairs_per_gaussian,
                     chunk=cfg.chunk, max_chunks=cfg.max_chunks,
-                    rect_candidates=cfg.rect_candidates,
+                    rect_candidates=cfg.rect_candidates, **fwd_caps,
                 )
                 img = out["render"]
             else:
                 out = render_sharded(
                     base, stack_cameras([c]), black, mesh, cfg.pairs_per_gaussian,
-                    cfg.chunk, cfg.max_chunks, cfg.rect_candidates, band_tiles,
+                    cfg.chunk, cfg.max_chunks, cfg.rect_candidates, band_tiles, **fwd_caps,
                 )
                 img = out["render"][0]
             gt_bboxes.append(silhouette_bbox(img).cpu().numpy())
@@ -299,9 +300,9 @@ def run_dagger(
     gt_bboxes = np.stack(gt_bboxes)
     if n_trunc:
         log(
-            f"[Warning] {n_trunc} valid pairs truncated by max_chunks across "
-            "the benign renders — images are missing contributions; raise "
-            "max_chunks."
+            f"[Warning] {n_trunc} valid pairs truncated by pairs_budget/max_chunks "
+            "across the benign renders — images are missing contributions; raise "
+            "pairs_budget or max_chunks."
         )
 
     target_idx = cfg.target if cfg.target is not None else 0
@@ -309,7 +310,7 @@ def run_dagger(
     def attack_step(params, cams, bboxes):
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         sc = base.with_params(leaves)
-        loss = detector.loss(views_render(sc, cams, bg), target_idx, bboxes)
+        loss = detector.loss(views_render(sc, cams, bg, loss_caps), target_idx, bboxes)
         grads = dict(zip(leaves, torch.autograd.grad(
             loss, list(leaves.values()), allow_unused=True)))
         grads = {
@@ -385,12 +386,12 @@ def run_dagger(
         if (it % cfg.eval_every) == 0:
             with torch.no_grad():
                 if frozen_scene is None:
-                    eval_imgs = views_render(base.with_params(params), cams, bg)
+                    eval_imgs = views_render(base.with_params(params), cams, bg, fwd_caps)
                 else:
                     eval_imgs = render_views(
                         whole(params).concat(frozen_scene), cams, bg, cfg.pairs_per_gaussian,
                         cfg.max_chunks, cfg.chunk, cfg.rect_candidates, mesh=mesh,
-                        band_tiles=band_tiles,
+                        band_tiles=band_tiles, **fwd_caps,
                     )
             eval_imgs = eval_imgs.cpu().numpy()
             successes = []

@@ -294,6 +294,8 @@ def cmd_render_eval(argv):
         rect_candidates=cfg.get("rect_candidates", -1),
         pairs_budget=cfg.get("pairs_budget", -1),
         max_chunks=cfg.get("max_chunks", 16),
+        tier_split=cfg.get("tier_split", -1),
+        heavy_budget=cfg.get("heavy_budget", -1),
     )
     out = run_render_eval(scene, views, detector, rcfg, frozen_scene=frozen, logger=logger)
     print(f"rendered {len(out['records'])} cameras -> {out['dirs']}")
@@ -410,6 +412,11 @@ def cmd_coco_ap(argv):
     return 0
 
 
+# The render settings of configs/config.yaml that `train` passes on.
+RENDER_CAP_KEYS = ("pairs_per_gaussian", "max_chunks", "backend", "pairs_budget",
+                   "rect_candidates", "compact_budget", "tier_split", "heavy_budget")
+
+
 def cmd_train(argv):
     """3DGS training on the port's `Trainer` (CLOAK poisoning with
     --poison-views). `sh_increase_interval` and `capacity_headroom`, which
@@ -471,6 +478,7 @@ def cmd_train(argv):
         reg3d_lambda_val=cfg.reg3d_lambda_val,
         reg3d_max_points=cfg.reg3d_max_points,
         reg3d_sample_size=cfg.reg3d_sample_size,
+        **{k: cfg.get(k, getattr(TrainConfig, k)) for k in RENDER_CAP_KEYS},
     )
     classifier = None
     if tcfg.use_reg3d:

@@ -51,20 +51,27 @@
 // or keeps them, without selects: the geometry values pair with zero
 // slots, and colour slots j and CB + j pair channels whose g_img factors
 // each half-warp holds in send / keep order (gS, gK), reading the pair's
-// colour blocks in the same order. Lane q adds its sum into shared memory
-// (atomicAdd); after the batch, one thread per nonzero (pair, slot) adds it
-// to the gaussian's gradient with a global atomicAdd. Three staging
-// buffers and two sum buffers let batch b - 1's sums be flushed while
-// batch b is walked. The sum order changes from run to run: results agree
-// with the plain version to float rounding, not bit for bit.
+// colour blocks in the same order. Lane q stores its warp's sum of slot q
+// for the pair in the warp's own slots in shared memory (zero when no
+// lane of the warp is live). After the batch, the 8 warps' sums of each
+// (pair, value) are added in warp order and stored, with plain coalesced
+// stores, in the pair's row of d_pair (P, 6 + CH): mean2d 2, conic 3,
+// opacity 1, then the colours. A pair lies in one tile, so one CTA owns
+// its row; the tile's rows past its deepest last contributor are zeros.
+// The per-gaussian sum of the rows is a second kernel (gather_sum.cu),
+// over the binning's slot table. No step uses atomics, so the gradients
+// are the same from run to run, bit for bit. The warps' sums share the
+// memory g_img came in through (each thread holds its own g_img by then);
+// two staging buffers suffice, since a batch is flushed before the next
+// is walked, at one barrier more a batch than the atomics took.
 //
 // What bounds it on an H100: every (pixel, pair) a kernel evaluates costs
 // the alpha test, 17 fp32 operations with one exp; a live (composited)
 // pair adds 4 + 2*CH in the forward, and 28 + 3*CH in the backward plus
 // 6 + CH adds to sum its gradients over the tile. Per pair a CTA gathers
-// (6 + CH) * 4 bytes plus a 4-byte index; the image, T and `last` are
-// written (read back, with the gradients, in the backward) once per
-// pixel. chip_smoke.py counts both from a run's inputs: bytes bound both
+// (6 + CH) * 4 bytes plus a 4-byte index, and the backward writes its
+// (6 + CH) * 4-byte row; the image, T and `last` are written (read back,
+// with g_img, in the backward) once per pixel. chip_smoke.py counts both from a run's inputs: bytes bound both
 // kernels. Neither reaches that bound. The backward's time goes to the
 // (warp, pair) steps with a live lane, ~250 instructions each of which the
 // reduce-scatter takes half; the forward's to the alpha tests of a tile's
@@ -372,16 +379,19 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
                  const int* __restrict__ tile_end, int tiles_x, int tiles_y,
                  const float* __restrict__ out_T, const int* __restrict__ last,
                  const float* __restrict__ g_img, const float* __restrict__ g_T,
-                 float* __restrict__ d_mean2d, float* __restrict__ d_conic,
-                 float* __restrict__ d_opacity, float* __restrict__ d_colors) {
+                 float* __restrict__ d_pair) {
   using P = Pairs<CH>;
-  constexpr int NP = P::NP;
+  constexpr int NP = P::NP, NV = P::NV;
   constexpr int STAGE = BWD_BATCH * P::STRIDE;
-  __shared__ __align__(16) float s_img[BLOCK * CH];     // the tile's g_img
-  __shared__ __align__(16) float s_pairs[3 * STAGE];    // ring of staged batches
-  __shared__ float s_acc[2][BWD_BATCH * NP];            // per-pair sums over the tile
-  __shared__ int s_gid[3][BWD_BATCH];
+  constexpr int PART = NWARP * BWD_BATCH * NP;  // per-warp sums of a batch's pairs
+  // The tile's g_img until each thread holds its own, then the same memory
+  // holds the warps' per-pair sums.
+  constexpr int SHARED = BLOCK * CH > PART ? BLOCK * CH : PART;
+  __shared__ __align__(16) float s_shared[SHARED];
+  __shared__ __align__(16) float s_pairs[2 * STAGE];  // two staged batches
   __shared__ int s_wmax[NWARP];
+  float* const s_img = s_shared;
+  float* const s_part = s_shared;
 
   // The forward's cap is already folded into `last`.
   const TileCtx c = tile_ctx(tile_start, tile_end, tiles_x, tiles_y, 0x7fffffff);
@@ -395,8 +405,7 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
                g_img + tile_row<CH>(c, r, tiles_x, tiles_y) + 4 * j);
   }
   cp_async_commit();
-  for (int i = t; i < 2 * BWD_BATCH * NP; i += BLOCK) (&s_acc[0][0])[i] = 0.0f;
-  for (int i = t; i < 3 * STAGE; i += BLOCK) s_pairs[i] = 0.0f;  // the colour pads
+  for (int i = t; i < 2 * STAGE; i += BLOCK) s_pairs[i] = 0.0f;  // the colour pads
 
   const int my_last = last[c.pix];
   float T = out_T[c.pix];
@@ -407,6 +416,10 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
   int n_hi = 0;
 #pragma unroll
   for (int w = 0; w < NWARP; ++w) n_hi = max(n_hi, s_wmax[w]);
+  // The rows of the tile's pairs past every pixel's last contributor
+  // (those past the forward's cap among them) are zero.
+  for (int i = t; i < (c.count - n_hi) * NV; i += BLOCK)
+    d_pair[(size_t)(c.start + n_hi) * NV + i] = 0.0f;
   if (n_hi == 0) {  // no pixel of the tile has a contributor
     cp_async_wait<0>();
     return;
@@ -418,7 +431,7 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
   const auto batch_n = [&](int b) { return n_hi - b * BWD_BATCH - batch_lo(b); };
 
   const auto stage = [&](int b) {
-    stage_batch<CH, BWD_BATCH>(s_pairs + (b % 3) * STAGE, s_gid[b % 3], gauss_idx,
+    stage_batch<CH, BWD_BATCH>(s_pairs + (b & 1) * STAGE, nullptr, gauss_idx,
                                c.start + batch_lo(b), batch_n(b), mean2d, conic, opacity,
                                colors);
   };
@@ -438,38 +451,33 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
     gS[j] = upper1 ? ga : gb;
   }
 
-  // Batch b's sums, from s_acc to the per-gaussian gradients.
+  // Batch b's rows: each pair's NV sums, the warps' partial sums added in
+  // warp order, stored to the pair's row with plain (coalesced) stores.
+  // Value v of a row lives in slot v below 6, channel v - 6 in slot v below
+  // 6 + CB and in slot H1 + v - CB past it (nothing in [H1, H1 + 6)).
   const auto flush = [&](int b) {
-    float* acc = s_acc[b & 1];
-    const int* gids = s_gid[b % 3];
     const int n = batch_n(b);
-    // Slot q of a pair: value q below 6, channel q - 6 below H1, nothing
-    // in [H1, H1 + 6), channel q - H1 - 6 + CB above.
-    for (int i = t; i < n * NP; i += BLOCK) {
-      const int k = i / NP, q = i % NP;
-      const float sum = acc[i];
-      if (sum == 0.0f) continue;
-      acc[i] = 0.0f;
-      const size_t g = (size_t)gids[k];
-      const int ch = q < H1 ? q - 6 : q - H1 - 6 + CB;
-      float* dst = q < 2   ? d_mean2d + 2 * g + q
-                   : q < 5 ? d_conic + 3 * g + (q - 2)
-                   : q == 5 ? d_opacity + g
-                            : d_colors + g * CH + ch;
-      atomicAdd(dst, sum);
+    float* dst = d_pair + (size_t)(c.start + batch_lo(b)) * NV;
+    for (int i = t; i < n * NV; i += BLOCK) {
+      const int k = i / NV, v = i - k * NV;
+      const int q = v < 6 + CB ? v : H1 + v - CB;
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < NWARP; ++w) sum += s_part[(w * BWD_BATCH + k) * NP + q];
+      dst[i] = sum;
     }
   };
 
   for (int b = 0; b < nb; ++b) {
     cp_async_wait<0>();
-    // Batch b has landed; every thread has walked batch b - 1 and flushed
-    // batch b - 2, whose buffers the next batch and this one's sums reuse.
+    // Batch b has landed; every thread has flushed batch b - 1, whose
+    // staging buffer the next batch reuses and whose sums this one's
+    // overwrite (every thread has read its g_img before the first).
     __syncthreads();
     if (b + 1 < nb) stage(b + 1);
-    if (b > 0) flush(b - 1);
 
-    const float* buf = s_pairs + (b % 3) * STAGE;
-    float* acc = s_acc[b & 1];
+    const float* buf = s_pairs + (b & 1) * STAGE;
+    float* part = s_part + warp * BWD_BATCH * NP;
     const int lo = batch_lo(b);
     for (int k = batch_n(b) - 1; k >= 0; --k) {
       const float* pk = buf + k * P::STRIDE;
@@ -482,7 +490,10 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
         a = pair_alpha(dx, dy, g0.z, g0.w, g1.x, g1.y);
         use = a.use;
       }
-      if (__ballot_sync(FULL, use) == 0u) continue;
+      if (__ballot_sync(FULL, use) == 0u) {
+        if (lane < NP) part[k * NP + lane] = 0.0f;
+        continue;
+      }
       // A live lane's factors of its gradient values; 0 on the other lanes.
       float px_ = 0.0f, py_ = 0.0f, fo = 0.0f, fw = 0.0f;
       if (use) {
@@ -527,11 +538,11 @@ blend_bwd_kernel(const float* __restrict__ mean2d, const float* __restrict__ con
       halve<H1 / 2, H1>(v, lane);
       float sum = v[0];
       if constexpr (NP == 16) sum += __shfl_xor_sync(FULL, sum, 16);
-      if (lane < NP && sum != 0.0f) atomicAdd(acc + k * NP + lane, sum);
+      if (lane < NP) part[k * NP + lane] = sum;
     }
+    __syncthreads();  // every warp's sums of batch b are in
+    flush(b);
   }
-  __syncthreads();
-  flush(nb - 1);
 }
 
 template <int CH>
@@ -551,12 +562,11 @@ int launch_bwd(const float* mean2d, const float* conic, const float* opacity,
                const float* colors, const int* gauss_idx, const int* tile_start,
                const int* tile_end, int num_views, int tiles_x, int tiles_y,
                const float* out_T, const int* last, const float* g_img,
-               const float* g_T, float* d_mean2d, float* d_conic, float* d_opacity,
-               float* d_colors, cudaStream_t stream) {
+               const float* g_T, float* d_pair, cudaStream_t stream) {
   const dim3 grid(tiles_x * tiles_y, num_views);
   blend_bwd_kernel<CH><<<grid, BLOCK, 0, stream>>>(
       mean2d, conic, opacity, colors, gauss_idx, tile_start, tile_end, tiles_x,
-      tiles_y, out_T, last, g_img, g_T, d_mean2d, d_conic, d_opacity, d_colors);
+      tiles_y, out_T, last, g_img, g_T, d_pair);
   return (int)cudaGetLastError();
 }
 
@@ -595,19 +605,18 @@ extern "C" int gs_blend_bwd(const float* mean2d, const float* conic,
                             const int* gauss_idx, const int* tile_start,
                             const int* tile_end, int n_ch, int num_views, int tiles_x,
                             int tiles_y, const float* out_T, const int* last,
-                            const float* g_img, const float* g_T, float* d_mean2d,
-                            float* d_conic, float* d_opacity, float* d_colors,
+                            const float* g_img, const float* g_T, float* d_pair,
                             void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_ch) {
     case 3:
       return launch_bwd<3>(mean2d, conic, opacity, colors, gauss_idx, tile_start,
                            tile_end, num_views, tiles_x, tiles_y, out_T, last, g_img,
-                           g_T, d_mean2d, d_conic, d_opacity, d_colors, s);
+                           g_T, d_pair, s);
     case 19:
       return launch_bwd<19>(mean2d, conic, opacity, colors, gauss_idx, tile_start,
                             tile_end, num_views, tiles_x, tiles_y, out_T, last, g_img,
-                            g_T, d_mean2d, d_conic, d_opacity, d_colors, s);
+                            g_T, d_pair, s);
     default:
       return ERR_CHANNELS;
   }

@@ -34,10 +34,13 @@ from ..core.scene import GaussianScene
 from ..io.png import to_uint8, write_png
 from ..models.base import Detector
 from ..ops.project import project
-from ..ops.raster import auto_pairs_per_gaussian
+from ..ops.raster import (
+    auto_heavy_budget,
+    auto_pair_caps,
+    auto_pairs_budget,
+    auto_tier_caps,
+)
 from ..render import render
-
-_PACK_ONLY = "ROADMAP.md Queue 1 item 6, the tiered bin and the auto_caps probes"
 
 
 @dataclasses.dataclass
@@ -50,14 +53,14 @@ class RenderEvalConfig:
     renders_dir: str = "renders"
     preds_dir: str = "preds"
     save_images: bool = True
-    # The reference's blend route ("auto", "xla" or "pallas"). Here the
-    # route follows the tensors' device, so every value runs the same code.
+    # The reference's blend route ("auto", "xla" or "pallas"), with its
+    # rules for the caps; "auto" is "xla" on the CPU and "pallas" on the
+    # card. The blend follows the tensors' device.
     backend: str = "auto"
-    # -1: sized from the largest tile footprint over (up to 8 of) the
-    # cameras and every rendered scene.
+    # -1: sized from the binned geometry of up to 8 of the cameras over
+    # every rendered scene, as the reference sizes it (`_resolve_render_caps`).
     pairs_per_gaussian: int = -1
-    rect_candidates: int = -1  # -1 means 0 (no row compaction)
-    # The Pallas pack layout's and tiered bin's caps: -1 and 0 mean exact.
+    rect_candidates: int = -1
     pairs_budget: int = -1
     max_chunks: int = 16
     tier_split: int = -1
@@ -70,36 +73,67 @@ def _resolve_render_caps(
     cameras: Sequence[CameraExtrinsics],
     log: logging.Logger,
 ) -> RenderEvalConfig:
-    """Resolve the -1 settings: `pairs_per_gaussian` from the binned pair
-    footprint of up to 8 sampled cameras over every scene that gets
-    rendered (the target-only silhouette pass and the overlay pass); the
-    rest to 0."""
+    """Resolve "auto" and the -1 settings as the reference does: the caps
+    from the binned geometry of up to 8 sampled cameras over every scene
+    that gets rendered (the target-only silhouette pass and the overlay
+    pass); the budget and the tier only on the "pallas" route (0 on
+    "xla"); a `heavy_budget` of -1 measured at the chosen split, or the
+    tier off where there is no row compaction."""
     if cfg.backend not in ("auto", "xla", "pallas"):
         raise ValueError(f"unknown backend {cfg.backend!r}")
-    for field in ("pairs_budget", "tier_split", "heavy_budget"):
-        if getattr(cfg, field) > 0:
-            raise NotImplementedError(
-                f"RenderEvalConfig.{field}={getattr(cfg, field)}: a static cap of the "
-                f"Pallas pack layout and tiered bin, not ported ({_PACK_ONLY})"
-            )
-    pairs = cfg.pairs_per_gaussian
-    rect = max(cfg.rect_candidates, 0)
-    if pairs < 0:
-        if len(cameras) > 8:
-            sample = [cameras[i] for i in np.linspace(0, len(cameras) - 1, 8).astype(int)]
-        else:
-            sample = list(cameras)
-        with torch.no_grad():
-            pairs = max(
-                auto_pairs_per_gaussian(project(sc, cam), cam.width, cam.height)
-                for sc in scenes
-                for cam in (ext.build(device=sc.device) for ext in sample)
-            )
-        log.info("[render-eval] auto caps: pairs_per_gaussian=%d rect_candidates=%d",
-                 pairs, rect)
+    backend = cfg.backend
+    if backend == "auto":
+        backend = "pallas" if scenes[0].device.type == "cuda" else "xla"
+    pairs, rect = cfg.pairs_per_gaussian, cfg.rect_candidates
+    budget = cfg.pairs_budget
+    tier = (cfg.tier_split, cfg.heavy_budget)
+    if pairs >= 0 and rect >= 0 and (
+        (budget >= 0 and tier[0] >= 0 and tier[1] >= 0) or backend != "pallas"
+    ):
+        if backend != "pallas":
+            tier = (max(tier[0], 0), max(tier[1], 0))
+            budget = max(budget, 0)  # the "xla" route applies no budget
+        return dataclasses.replace(cfg, backend=backend, pairs_budget=budget,
+                                   tier_split=tier[0], heavy_budget=tier[1])
+
+    if len(cameras) > 8:
+        sample = [cameras[i] for i in np.linspace(0, len(cameras) - 1, 8).astype(int)]
+    else:
+        sample = list(cameras)
+    with torch.no_grad():
+        projs = [(project(sc, cam), cam) for sc in scenes
+                 for cam in (ext.build(device=sc.device) for ext in sample)]
+        if pairs < 0 or rect < 0:
+            caps = [auto_pair_caps(p, c.width, c.height) for p, c in projs]
+            pairs = max(k for k, _ in caps) if pairs < 0 else pairs
+            rect_m = max(r for _, r in caps)
+            rect = rect_m if rect < 0 else rect
+            if rect < pairs:
+                rect = 0
+            log.info("[render-eval] auto caps: pairs_per_gaussian=%d rect_candidates=%d",
+                     pairs, rect)
+        if budget < 0 and backend == "pallas":
+            budget = max(auto_pairs_budget(p, c.width, c.height, pairs, margin=1.25,
+                                           rect_candidates=rect) for p, c in projs)
+            log.info("[render-eval] auto pairs_budget=%d", budget)
+        elif budget < 0:
+            budget = 0
+        if tier[0] < 0 and backend == "pallas" and 0 < pairs <= rect:
+            tier = (max(auto_tier_caps(p, c.width, c.height, pairs, rect)[0]
+                        for p, c in projs), 0)
+        elif tier[0] < 0:
+            tier = (0, 0)
+        if tier[0] > 0 and tier[1] < 0 and backend == "pallas" and 0 < pairs <= rect:
+            tier = (tier[0], max(auto_heavy_budget(p, c.width, c.height, pairs, rect, tier[0])
+                                 for p, c in projs))
+            log.info("[render-eval] auto tier=(%d, %d)", *tier)
+        elif tier[0] > 0 and tier[1] < 0:
+            tier = (0, 0)  # the tier needs row compaction: off
+    if tier[0] == 0 and rect == pairs:
+        rect = 0  # the identity left-pack with no tier
     return dataclasses.replace(
-        cfg, pairs_per_gaussian=pairs, rect_candidates=rect, pairs_budget=0,
-        tier_split=0, heavy_budget=0,
+        cfg, backend=backend, pairs_per_gaussian=pairs, rect_candidates=rect,
+        pairs_budget=budget, tier_split=max(tier[0], 0), heavy_budget=max(tier[1], 0),
     )
 
 
@@ -138,7 +172,8 @@ def run_render_eval(
     def render_rgb(sc, bg_, cam):
         out = render(sc, cam, bg_, pairs_per_gaussian=cfg.pairs_per_gaussian,
                      max_chunks=cfg.max_chunks, rect_candidates=cfg.rect_candidates,
-                     with_objects=False)
+                     with_objects=False, backend=cfg.backend, pairs_budget=cfg.pairs_budget,
+                     tier_split=cfg.tier_split, heavy_budget=cfg.heavy_budget)
         return out["render"], int(out["num_truncated_pairs"])
 
     records, coco_results = [], []
@@ -184,7 +219,7 @@ def run_render_eval(
     if n_truncated:
         log.warning(
             "[render-eval] %d pairs truncated by the static caps across the "
-            "sweep — raise max_chunks for exact images",
+            "sweep — raise pairs_budget/max_chunks for exact images",
             n_truncated,
         )
     coco_path = None

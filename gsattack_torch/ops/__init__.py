@@ -1,4 +1,5 @@
-"""Projection, tile binning, the blend and the row gather (plain PyTorch and
+"""Projection, tile binning with its static caps and probes, the blend and
+its backward's per-gaussian sum, and the row gather (plain PyTorch and
 CUDA); `_cuda` builds and loads the kernel library."""
 
 from .knn import mean_knn_dist2

@@ -132,6 +132,11 @@ def render_sharded(
     with_objects: bool = True,
     return_objects: bool = False,
     mean2d_offset: torch.Tensor | None = None,
+    backend: str = "xla",
+    pairs_budget: int = 0,
+    compact_budget: int = 0,
+    tier_split: int = 0,
+    heavy_budget: int = 0,
 ) -> dict:
     """The sharded render of a stacked camera batch, with the counts a
     trainer reads. `scene` is this rank's splat block (`shard_scene`);
@@ -150,7 +155,10 @@ def render_sharded(
     that requires grad collects their gradient. `band_tiles` gives each
     splats rank its tile rows (one count each, summing to tiles_y;
     `plan_bands(measure_tile_row_costs(...))` balances them by pairs);
-    None splits the rows evenly."""
+    None splits the rows evenly. `backend` and the caps go to every band
+    as `rasterize_views` takes them: the tiered bin works on the whole
+    image's candidates, the budgets on each band's own pair list and slot
+    table, as the reference packs each band."""
     width, height = cams.width, cams.height
     n_views, n_splats = axis_size(mesh, VIEWS_AXIS), axis_size(mesh, SPLATS_AXIS)
     splats_group = mesh.get_group(SPLATS_AXIS)
@@ -195,7 +203,8 @@ def render_sharded(
     out = rasterize_views(
         full, width, height, bg, pairs_per_gaussian=pairs_per_gaussian, chunk=chunk,
         max_chunks=max_chunks, with_objects=with_objects, rect_candidates=rect_candidates,
-        tile_rows=tile_rows,
+        tile_rows=tile_rows, backend=backend, pairs_budget=pairs_budget,
+        compact_budget=compact_budget, tier_split=tier_split, heavy_budget=heavy_budget,
     )
     img = torch.cat([out["render"], out["render_object"]], -1) if return_objects else out["render"]
     if pad:
@@ -225,11 +234,17 @@ def render_views_sharded(
     band_tiles: tuple[int, ...] | None = None,
     with_objects: bool = True,
     return_objects: bool = False,
+    backend: str = "xla",
+    pairs_budget: int = 0,
+    compact_budget: int = 0,
+    tier_split: int = 0,
+    heavy_budget: int = 0,
 ) -> torch.Tensor:
     """Sharded multi-view render -> (V, H, W, 3) on every rank,
     differentiable with respect to this rank's splat block `scene`
     (`render_sharded` has the arguments)."""
     return render_sharded(
         scene, cams, bg, mesh, pairs_per_gaussian, chunk, max_chunks, rect_candidates,
-        band_tiles, with_objects, return_objects,
+        band_tiles, with_objects, return_objects, backend=backend, pairs_budget=pairs_budget,
+        compact_budget=compact_budget, tier_split=tier_split, heavy_budget=heavy_budget,
     )["render"]

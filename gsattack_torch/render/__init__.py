@@ -28,18 +28,26 @@ def render(
     max_chunks: int = 16,
     with_objects: bool = True,
     rect_candidates: int = 0,
+    backend: str = "xla",
+    pairs_budget: int = 0,
+    compact_budget: int = 0,
+    tier_split: int = 0,
+    heavy_budget: int = 0,
 ) -> dict:
     """Render one camera view. Returns `render`, `render_object`, `radii`,
     `visibility_filter`, `final_transmittance`, `num_culled_pairs` and
     `num_truncated_pairs`. A zero `mean2d_offset` that requires grad
-    collects the screen-space mean gradients."""
+    collects the screen-space mean gradients. `backend` and the caps as in
+    `ops/raster.py::rasterize`."""
     proj = project(scene, camera, scaling_modifier, override_color)
     if mean2d_offset is not None:
         proj = proj._replace(mean2d=proj.mean2d + mean2d_offset)
     out = rasterize(
         proj, camera.width, camera.height, bg,
         pairs_per_gaussian=pairs_per_gaussian, chunk=chunk, max_chunks=max_chunks,
-        with_objects=with_objects, rect_candidates=rect_candidates,
+        with_objects=with_objects, rect_candidates=rect_candidates, backend=backend,
+        pairs_budget=pairs_budget, compact_budget=compact_budget, tier_split=tier_split,
+        heavy_budget=heavy_budget,
     )
     out["radii"] = proj.radius
     out["visibility_filter"] = proj.radius > 0

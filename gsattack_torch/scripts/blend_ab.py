@@ -14,7 +14,9 @@ report for the blend kernels (registers, shared memory, spills, and the
 CTAs an SM can hold by those), holds both kernels against the plain version
 with the gates of `chip_smoke.py` (at these shapes, and on phase 2b's
 batch-edge and cap tiles), and times each as the mean over `--reps`
-launches between CUDA events, `--rounds` times. To compare two commits,
+launches between CUDA events, `--rounds` times, and the whole backward as
+autograd runs it (`blend_bwd` and, where ROOT's backward writes per-pair
+rows, `gather_sum_rows`). To compare two commits,
 give them in turns, parent, change, change, parent. The summary gives each
 ROOT's median over all its rounds; `--out` writes every run as JSON. Exits
 1 if any ROOT fails its build or a gate.
@@ -113,18 +115,23 @@ def worker(root: str, reps: int, rounds: int) -> dict:
             ok = False
     plain_in = [x.detach() for x in blend_in]
     T, last, g_img, g_t = cmp["T"], cmp["last"], cmp["g_img"], cmp["g_T"]
-    fwd_ms, bwd_ms = [], []
+    table = cmp["slot_table"]
+    fwd_ms, bwd_ms, grad_ms = [], [], []
     with torch.no_grad():
         for _ in range(rounds):
             fwd_ms.append(smoke.cuda_ms(
                 lambda: blend.forward_kernel(*idx, *plain_in, *tiles, cap), reps))
             bwd_ms.append(smoke.cuda_ms(
                 lambda: blend.backward_kernel(*idx, *plain_in, *tiles, T, last, g_img, g_t), reps))
+            # The whole backward: with per-pair rows, blend_bwd and the sum.
+            grad_ms.append(smoke.cuda_ms(
+                lambda: smoke.kernel_grads(idx, plain_in, tiles, T, last, g_img, g_t, table),
+                reps))
     return {
         "root": root, "ok": ok, "card": smoke.nvidia_smi(), "build_s": build_s,
         "ptxas": ptxas_report(buf.getvalue()), "n_pairs": int(bins.gauss_idx.shape[0]),
         "fwd_err": cmp["fwd_err"], "bwd_rel": cmp["bwd_rel"],
-        "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+        "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "grad_ms": grad_ms,
     }
 
 
@@ -159,7 +166,8 @@ def main(argv=None) -> int:
               f"{'ok' if run['ok'] else 'GATE FAILED'}, image/T max abs {run['fwd_err']:.3e}, "
               f"gradients max rel {max(run['bwd_rel'].values()):.3e}; "
               f"fwd ms {' '.join(f'{t:.4f}' for t in run['fwd_ms'])}; "
-              f"bwd ms {' '.join(f'{t:.4f}' for t in run['bwd_ms'])}", flush=True)
+              f"bwd ms {' '.join(f'{t:.4f}' for t in run['bwd_ms'])}; "
+              f"whole backward ms {' '.join(f'{t:.4f}' for t in run['grad_ms'])}", flush=True)
         for name, rep in sorted(run["ptxas"].items()):
             print(f"  {name}: {rep}", flush=True)
         if not run["ok"]:
@@ -170,7 +178,9 @@ def main(argv=None) -> int:
         mine = [r for r in runs if r["root"] == root]
         fwd = statistics.median(t for r in mine for t in r["fwd_ms"])
         bwd = statistics.median(t for r in mine for t in r["bwd_ms"])
-        print(f"  {root}: blend_fwd {fwd:.4f} ms, blend_bwd {bwd:.4f} ms ({len(mine)} runs)")
+        grad = statistics.median(t for r in mine for t in r["grad_ms"])
+        print(f"  {root}: blend_fwd {fwd:.4f} ms, blend_bwd {bwd:.4f} ms, the whole backward "
+              f"{grad:.4f} ms ({len(mine)} runs)")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(runs, indent=1))

@@ -34,6 +34,8 @@ from ..core.camera import Camera, stack_cameras
 from ..core.scene import PARAM_NAMES, GaussianScene
 from ..device import resolve_device
 from ..io.checkpoint import save_checkpoint
+from ..ops.project import project
+from ..ops.raster import BACKENDS, CAP_FIELDS, resolve_caps
 from ..parallel.collectives import all_gather, gather
 from ..parallel.mesh import SPLATS_AXIS, axis_size
 from ..parallel.shard import render_sharded
@@ -48,8 +50,6 @@ from .densify import (
     reset_opacity,
 )
 from .reg3d import reg3d_loss
-
-_PACK_ONLY = "ROADMAP.md Queue 1 item 6, the tiered bin and the auto_caps probes"
 
 # optax.scale_by_adam(b1=0.9, b2=0.999, eps=1e-15), as the reference trains.
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-15
@@ -81,11 +81,12 @@ class TrainConfig:
     capacity_headroom: float = 1.5
     pairs_per_gaussian: int = 32
     max_chunks: int = 16
-    # The reference's blend route ("xla" or "pallas"). Here the route
-    # follows the tensors' device, so both values run the same code.
+    # The reference's blend route ("xla" or "pallas"), with its rules for
+    # the static caps (ops/raster.py); the blend follows the tensors'
+    # device. Training grows the splat set: leave the caps headroom. A -1
+    # is sized at `fit` from the training views (`resolve_caps`, as the
+    # attack driver sizes it; the reference's trainer takes no -1).
     backend: str = "xla"
-    # The Pallas pack layout's and tiered bin's static caps: only 0 is
-    # supported.
     pairs_budget: int = 0
     rect_candidates: int = 0
     compact_budget: int = 0
@@ -198,13 +199,7 @@ def adam_update(params: dict, grads: dict, mu: dict, nu: dict, count: int, lrs: 
 
 
 def check_supported(cfg: TrainConfig) -> None:
-    for field in ("pairs_budget", "compact_budget", "tier_split", "heavy_budget"):
-        if getattr(cfg, field) != 0:
-            raise NotImplementedError(
-                f"TrainConfig.{field}={getattr(cfg, field)}: a static cap of the "
-                f"Pallas pack layout and tiered bin, not ported ({_PACK_ONLY})"
-            )
-    if cfg.backend not in ("xla", "pallas"):
+    if cfg.backend not in BACKENDS:
         raise ValueError(f"unknown backend {cfg.backend!r}")
 
 
@@ -298,6 +293,30 @@ class Trainer:
             stats=DensifyStats(*(whole(v) for v in st.stats)),
         )
 
+    def _caps(self) -> dict:
+        cfg = self.cfg
+        return dict(backend=cfg.backend, pairs_budget=cfg.pairs_budget,
+                    compact_budget=cfg.compact_budget, tier_split=cfg.tier_split,
+                    heavy_budget=cfg.heavy_budget)
+
+    def resolve_caps(self, cameras: Sequence[Camera], log: Callable[[str], None] = print,
+                     sample: int = 8) -> None:
+        """Size the config's -1 caps from the current scene's binned
+        geometry over up to `sample` of `cameras` (`ops/raster.py
+        resolve_caps`); `fit` calls it first. Nothing to do without a -1."""
+        if min(getattr(self.cfg, k) for k in CAP_FIELDS) >= 0:
+            return
+        cams = list(cameras)
+        if len(cams) > sample:
+            cams = [cams[i] for i in np.linspace(0, len(cams) - 1, sample).astype(int)]
+        scene = self.full_state().scene
+        if self.mesh is not None and dist.get_rank() != 0:
+            log = lambda *_: None  # noqa: E731
+        with torch.no_grad():
+            views = [(project(scene, c), c.width, c.height) for c in cams]
+            caps = resolve_caps(views, *(getattr(self.cfg, k) for k in CAP_FIELDS), log=log)
+        self.cfg = dataclasses.replace(self.cfg, **caps)
+
     @property
     def background(self) -> torch.Tensor:
         return torch.full((3,), 1.0 if self.cfg.white_background else 0.0, device=self.device)
@@ -318,13 +337,13 @@ class Trainer:
             out = render(
                 sc, camera, self.background, mean2d_offset=offset,
                 pairs_per_gaussian=cfg.pairs_per_gaussian, max_chunks=cfg.max_chunks,
-                rect_candidates=cfg.rect_candidates,
+                rect_candidates=cfg.rect_candidates, **self._caps(),
             )
         else:
             out = render_sharded(
                 sc, stack_cameras([camera]), self.background, self.mesh,
                 pairs_per_gaussian=cfg.pairs_per_gaussian, max_chunks=cfg.max_chunks,
-                rect_candidates=cfg.rect_candidates, mean2d_offset=offset,
+                rect_candidates=cfg.rect_candidates, mean2d_offset=offset, **self._caps(),
             )
             out = {**out, "render": out["render"][0], "radii": out["radii"][0]}
         loss = dssim_l1_loss(out["render"], gt, cfg.lambda_dssim)
@@ -425,8 +444,10 @@ class Trainer:
         restarts the sampler), then the SH, densify and opacity-reset
         schedules. With `checkpoint_dir`, the whole state is saved every
         `checkpoint_every` steps (`io.checkpoint`; by rank 0 with a mesh).
-        Returns the whole scene, on every rank."""
+        A -1 cap is sized first (`resolve_caps`). Returns the whole scene,
+        on every rank."""
         iterations = iterations or self.cfg.iterations
+        self.resolve_caps(cameras)
         views = torch.Generator().manual_seed(seed)
         noise = torch.Generator(device=self.device).manual_seed(seed)
         gts = [image_tensor(g, self.device) for g in gt_images]

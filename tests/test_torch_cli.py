@@ -174,7 +174,7 @@ def test_cli_recolor_combine_asr_coco_ap_match_jax(tmp_path, monkeypatch, capsys
     assert outs["t"][0] == (0, 1, 0) and "ASR:" in outs["t"][1]
 
 
-def test_cli_commands_refusals_and_devices(tmp_path, monkeypatch, capsys):
+def test_cli_commands_refusals_and_devices(tmp_path, monkeypatch, capsys, toy_twins):
     monkeypatch.chdir(REPO)
     assert list(tcli.COMMANDS) == list(jcli.COMMANDS)
     assert tcli.main(["bogus"]) == jcli.main(["bogus"]) == 2
@@ -184,11 +184,17 @@ def test_cli_commands_refusals_and_devices(tmp_path, monkeypatch, capsys):
     with pytest.raises(ValueError, match="does not hold the 1 ranks"):
         tcli.main(["attack", "use_mesh=true", "mesh_shape=[2,4]", "max_iters=1", *CPU])
     assert not torch.distributed.is_initialized()
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tcli.main(["render-eval", "pairs_budget=4096", "write_images=false", *CPU])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tcli.main(["attack", "tier_split=8", "max_iters=1", f"splat_asset_path={tmp_path}",
-                   *CPU])
+    # The static caps go through the config reader: on the "pallas" route
+    # a pairs_budget of one tile's 128 slots truncates the synthetic
+    # scene's renders, and both commands count it.
+    capsys.readouterr()
+    log = str(tmp_path / "render.log")
+    assert _with_render_log(log, lambda: tcli.main(
+        ["render-eval", "backend=pallas", "pairs_budget=128", "write_images=false", *CPU])) == 0
+    assert "pairs truncated by the static caps" in open(log).read()
+    assert tcli.main(["attack", "backend=pallas", "pairs_budget=128", "tier_split=8",
+                      "max_iters=1", f"splat_asset_path={tmp_path}", *CPU]) in (0, 1)
+    assert "valid pairs truncated by pairs_budget" in capsys.readouterr().out
     # Without a card, every command that builds tensors raises unless it
     # is given --device cpu.
     missing = str(tmp_path / "missing")

@@ -4,6 +4,8 @@ image gradient within 1e-4 max rel; the images within 1e-6 except where
 the sign of a near-zero gradient flips, at most 0.1% of the values), and
 `run_cloak` end to end at toy size."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -73,9 +75,27 @@ def test_run_cloak_poisons_and_retrains(monkeypatch):
     delta = np.abs(np_(poisoned[0]) - gts[0])
     assert 1e-4 < delta.max() <= 8 / 255 + 1e-6
     assert all(bool(torch.isfinite(v).all()) for v in scene.params().values())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        run_cloak(port_scene(make_toy_scene(n=8)), [], [], tdet, ccfg,
-                  train_cfg=TrainConfig(tier_split=2), device="cpu")
+    # The retraining's render on the "pallas" route with a tiered bin that
+    # binds: each step's render counts more dropped pairs than without it.
+    from gsattack_torch.train import trainer as ttrainer
+
+    plain_render, seen = ttrainer.render, []
+
+    def counted(sc, cam, bg, **kw):
+        out = plain_render(sc, cam, bg, **kw)
+        base = plain_render(sc, cam, bg, **{**kw, "tier_split": 0})
+        seen.append([int(o["num_culled_pairs"]) + int(o["num_truncated_pairs"])
+                     for o in (out, base)])
+        return out
+
+    monkeypatch.setattr(ttrainer, "render", counted)
+    tiered = dataclasses.replace(tcfg, backend="pallas", tier_split=1, heavy_budget=2,
+                                 pairs_per_gaussian=4, rect_candidates=4)
+    scene, _ = run_cloak(port_scene(make_toy_scene(n=32, seed=10)), cams, gts, tdet, ccfg,
+                         train_cfg=tiered, iterations=2, log=lines.append, device="cpu")
+    assert all(bool(torch.isfinite(v).all()) for v in scene.params().values())
+    assert len(seen) == 2 and all(a > b for a, b in seen)
+    monkeypatch.undo()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         run_cloak(port_scene(make_toy_scene(n=8)), [], [], tdet, ccfg)

@@ -172,12 +172,51 @@ def test_run_dagger_success_writes_ply_and_checkpoint_resumes(tmp_path, monkeypa
 
 
 @pytest.mark.parametrize(
-    "change", [dict(pairs_budget=4096), dict(compact_budget=512), dict(tier_split=2),
-               dict(heavy_budget=1024), dict(pairs_per_gaussian=-1, rect_candidates=-1)],
+    "change", [dict(pairs_budget=256), dict(compact_budget=128),
+               dict(tier_split=2, heavy_budget=8, pairs_per_gaussian=4, rect_candidates=4),
+               dict(heavy_budget=1, tier_split=1, pairs_per_gaussian=4, rect_candidates=8),
+               dict(pairs_per_gaussian=-1, rect_candidates=-1)],
 )
-def test_run_dagger_refuses_pack_layout_caps(change):
-    js = make_toy_scene(n=8, seed=0)
+def test_run_dagger_refuses_pack_layout_caps(change, tmp_path, monkeypatch):
+    """Each static cap runs in run_dagger on the "pallas" route (48 splats,
+    32x32, 180 pairs over 4 tiles: each setting binds) and its drops are
+    counted: the loss render counts what the binning drops at the same
+    settings, more than it drops without them; -1 is sized by the probes."""
+    from gsattack_torch.attack import dagger as tdagger
+    from gsattack_torch.ops.project import project, stack_projections
+    from gsattack_torch.ops.raster import auto_pair_caps
+
+    js = make_toy_scene(n=48, seed=1)
     _, tdet = _toy_pair()
-    views = [TExtrinsics(np.eye(3), np.zeros(3), 1.0, 1.0, 16, 16)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_run_dagger(port_scene(js), views, tdet, TConfig(**change), log=lambda *_: None)
+    views = [TExtrinsics(np.eye(3), np.zeros(3), 1.0, 1.0, 32, 32)]
+    counts = []
+    tdagger_rasterize = tdagger.rasterize_views
+
+    def counted(*a, **kw):
+        out = tdagger_rasterize(*a, **kw)
+        if out["render"].requires_grad:
+            counts.append(int(out["num_culled_pairs"]) + int(out["num_truncated_pairs"]))
+        return out
+
+    monkeypatch.setattr(tdagger, "rasterize_views", counted)
+    lines = []
+    cfg = TConfig(max_iters=2, batch_size=1, target=2, backend="pallas", save_ply=False,
+                  output_dir=str(tmp_path), **change)
+    res = t_run_dagger(port_scene(js), views, tdet, cfg, log=lines.append)
+    assert len(res.losses) == 1 and np.isfinite(res.losses).all()
+    scene, cam = port_scene(js), views[0].build(device="cpu")
+    proj = stack_projections([project(scene, cam)])
+    if change.get("pairs_per_gaussian") == -1:
+        pairs, rect = auto_pair_caps(project(scene, cam), 32, 32)
+        sized = f"[Info] Auto-sized pairs_per_gaussian = {pairs}, rect_candidates = {rect}"
+        assert sized in lines and len(counts) == 1
+        return
+    settings = dict(pairs_per_gaussian=32, rect_candidates=0) | change
+    pairs, rect = settings.pop("pairs_per_gaussian"), settings.pop("rect_candidates")
+
+    def dropped(**caps):
+        out = tdagger_rasterize(proj, 32, 32, torch.zeros(3), pairs, 64, 16,
+                                rect_candidates=rect, backend="pallas", **caps)
+        return int(out["num_culled_pairs"]) + int(out["num_truncated_pairs"])
+
+    assert counts == [dropped(**settings)] and counts[0] > dropped()

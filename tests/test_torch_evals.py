@@ -152,10 +152,33 @@ def test_run_render_eval_matches(tmp_path, frozen):
             assert np.abs(a - b).max() <= 1
 
 
-def test_render_eval_refuses_pallas_budgets():
-    cfg = tev.RenderEvalConfig(pairs_budget=4096)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tev.render_cli._resolve_render_caps(cfg, [], [], logging.getLogger("x"))
+def test_render_eval_refuses_pallas_budgets(tmp_path):
+    """The "pallas" route's caps in render-eval: every -1 resolved to the
+    reference's values, and a pairs_budget that binds (48 splats at 32x32,
+    4 tiles) runs and is counted in the log's truncation warning."""
+    js = make_toy_scene(n=48, seed=0)
+    views = [(np.eye(3), np.array([0.05 * i, 0.0, 0.1 * i])) for i in range(2)]
+    want = jev.render_cli._resolve_render_caps(
+        jev.RenderEvalConfig(backend="pallas"), [js], [JExt(R, T, 1.0, 1.0, 32, 32)
+                                                      for R, T in views],
+        logging.getLogger("x"))
+    exts = [TExt(R, T, 1.0, 1.0, 32, 32) for R, T in views]
+    got = tev.render_cli._resolve_render_caps(
+        tev.RenderEvalConfig(backend="pallas"), [port_scene(js)], exts, logging.getLogger("x"))
+    fields = ("backend", "pairs_per_gaussian", "rect_candidates", "pairs_budget", "tier_split",
+              "heavy_budget")
+    assert [getattr(got, k) for k in fields] == [getattr(want, k) for k in fields]
+    from gsattack_torch.models import ToyDetector
+
+    tdet = ToyDetector(num_classes=8, device="cpu")
+    log, fh = _logger("render_budget", str(tmp_path / "t.log"))
+    cfg = tev.RenderEvalConfig(backend="pallas", pairs_budget=128, save_images=False)
+    out = tev.run_render_eval(port_scene(js), exts, tdet, cfg, logger=log)
+    fh.close()
+    assert len(out["records"]) == len(exts)
+    text = (tmp_path / "t.log").read_text()
+    truncated = int(text.split("[render-eval] ")[-1].split(" pairs truncated")[0])
+    assert truncated > 0
 
 
 def test_feature_to_rgb_matches_sklearn():

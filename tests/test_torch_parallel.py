@@ -258,7 +258,8 @@ def test_dagger_with_mesh(group4, inputs, case):
     assert got_success == success
     assert "[Info] Pair-balanced tile bands: (2, 2)" in got_lines
     assert ("[Info] The view batch of 3 does not divide the views axis (2): views "
-            "replicated, splats still sharded." in got_lines) == (case != "dagger")
+            "replicated, splats still sharded." in got_lines) == (case == "dagger_replicated_views")
+    assert any(ln.startswith("[Info] Auto-sized") for ln in lines) == (case == "dagger_auto_caps")
     assert [ln for ln in got_lines if "tile bands" not in ln and "view batch" not in ln] == lines
     for res in group4[1:]:
         assert res[case][3] == []  # only rank 0 logs

@@ -202,12 +202,36 @@ def test_scene_iteration_convention(tmp_path):
     assert torch.equal(loaded.xyz, scene.xyz[scene.alive])
 
 
+# Each static cap at a setting that binds on the toy problem (48 splats at
+# 32x32, about 190 pairs over 4 tiles).
+BINDING_CAPS = {
+    "pairs_budget": dict(pairs_budget=128),
+    "compact_budget": dict(compact_budget=64),
+    "tier_split": dict(tier_split=1, heavy_budget=4, pairs_per_gaussian=4, rect_candidates=4),
+    "heavy_budget": dict(heavy_budget=2, tier_split=2, pairs_per_gaussian=4, rect_candidates=8),
+}
+
+
 @pytest.mark.parametrize("field", ["pairs_budget", "compact_budget", "tier_split",
                                    "heavy_budget"])
 def test_trainer_refuses_what_is_not_ported(field, monkeypatch):
-    sc = port_scene(make_toy_scene(n=8))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TTrainer(sc, TConfig(**{field: 64}), device="cpu")
+    """Each static cap runs in a training step on the "pallas" route, and
+    the step's render counts the pairs it drops (more than without it); an
+    unknown backend and a missing card are refused."""
+    cams, gts, _ = _toy_problem()
+    sc = port_scene(make_toy_scene(n=48, seed=5))
+    cam = port_camera(cams[0])
+    caps = BINDING_CAPS[field]
+    trainer = TTrainer(sc, TConfig(backend="pallas", **caps), device="cpu")
+    loss, grads, _, out = trainer.loss_and_grads(cam, torch.tensor(gts[0]))
+    assert np.isfinite(float(loss)) and all(bool(torch.isfinite(g).all()) for g in grads.values())
+    plain = {k: v for k, v in caps.items() if k in ("pairs_per_gaussian", "rect_candidates")}
+    base = t_render(sc, cam, torch.zeros(3), backend="pallas", **plain)
+
+    def drops(o):
+        return int(o["num_culled_pairs"]) + int(o["num_truncated_pairs"])
+
+    assert drops(out) > drops(base)
     with pytest.raises(ValueError, match="backend"):
         TTrainer(sc, TConfig(backend="mosaic"), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

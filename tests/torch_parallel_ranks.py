@@ -43,7 +43,15 @@ RENDER_CASES = {
     "replicated_blend": (64, 4, 48, 16, None, False, 32),
     "culled_pairs": (64, 4, 48, 64, None, False, 2),
 }
-DAGGER_CASES = {"dagger": 2, "dagger_replicated_views": 3}  # name: batch size
+# name: (batch size, AttackConfig settings): the last on the "pallas" route
+# with every static cap sized by the probes (-1).
+DAGGER_CASES = {
+    "dagger": (2, {}),
+    "dagger_replicated_views": (3, {}),
+    "dagger_auto_caps": (2, dict(backend="pallas", pairs_per_gaussian=-1, rect_candidates=-1,
+                                 pairs_budget=-1, compact_budget=-1, tier_split=-1,
+                                 heavy_budget=-1)),
+}
 
 
 def loss_and_grads(render_fn, scene):
@@ -93,8 +101,9 @@ def dagger_views():
 def dagger_case(scene, frozen, mask, case, mesh=None):
     """`run_dagger` with the toy head over a frozen overlay and a mask:
     (losses, final f_dc, per-view successes, log lines)."""
-    cfg = AttackConfig(max_iters=3, batch_mode=True, batch_size=DAGGER_CASES[case], target=2,
-                       eval_every=1, attack_conf_thresh=0.9, save_ply=False)
+    batch, caps = DAGGER_CASES[case]
+    cfg = AttackConfig(max_iters=3, batch_mode=True, batch_size=batch, target=2,
+                       eval_every=1, attack_conf_thresh=0.9, save_ply=False, **caps)
     lines = []
     det = ToyDetector(num_classes=8, seed=0, device="cpu")
     res = run_dagger(scene, dagger_views()[: cfg.batch_size], det, cfg, frozen_scene=frozen,
