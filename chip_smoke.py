@@ -34,7 +34,10 @@ Phases (any failure raises and exits non-zero):
      each kernel's time, the plain version's time and the least time the
      card could take (its bound), from the (pixel, pair) work these inputs
      need; `gather_sum_rows` equal to its plain version (`torch.equal`) and
-     timed beside `index_add_`, the two backward kernels timed apart and
+     timed beside `index_add_`, on its edge cases (`gather_sum_edges`),
+     and timed with its bound on a wide table of phase 11c's shape
+     (110,000 x 2500, `wide_table`; equal to the plain version and to the
+     narrow table's sums), the two backward kernels timed apart and
      together beside the fused atomic kernel's 0.8637 ms they replace; and
      the backward's (warp, pair) steps with a live lane, with the warp
      shuffles that summing their gradients takes by a butterfly per value
@@ -217,6 +220,10 @@ GATE_GRAD = 1e-3
 # gather_sum_rows replace, at phase 3's shapes, as phase 3 measured it on
 # an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel table).
 FUSED_BWD_MS = 0.8637
+# Phase 3 also times the sum on a wide slot table of phase 11c's shape:
+# the trainer's capacity (TRAIN_SPLATS at the 1.1 capacity headroom) by
+# the pairs_per_gaussian of 2500 that auto_caps gave it on the card.
+WIDE_SUM_TABLE = (110_000, 2500)
 CHUNK, MAX_CHUNKS = 128, 16
 EDGE_BATCHES = (32, 64)  # pairs staged per step: blend.cu's BWD_BATCH, FWD_BATCH
 # The row gather's sizes: the 500k-splat scene's gathers, as the JAX
@@ -655,24 +662,41 @@ def phase_edge_tiles(device) -> dict:
 
 
 def gather_sum_edges(device) -> dict:
-    """`gather_sum_rows` on its edge cases, at W of 9 and 25 (3 and 19
-    channels): c = 1, a row of -1 only, N = 0 (no launch), repeated slots;
-    each equal to the plain version (`torch.equal`), with one launch
-    (none for N = 0)."""
+    """`gather_sum_rows` on its edge cases, at W of 1, 9, 25 (3 and 19
+    channels), 40 and 70 (past the kernel's 64-column pass): c = 1, a row
+    of -1 only, N = 0 (no launch), repeated slots, c = 33, c = 700 and c =
+    2500 (the wide kernel: rows that share a chunk, and rows over several
+    chunks), 509 gaussians at c = 12 (a prime, so no multiple of a CTA's
+    gaussian block), every slot named (c = 12 and c = 2500), one pair
+    named along whole rows; each equal to the plain version
+    (`torch.equal`), with one launch (none for N = 0)."""
     import torch
 
     from gsattack_torch.ops import gather_sum
 
     g = torch.Generator().manual_seed(12)
+    p = 600
+
+    def sparse(n, c, named=0.15):
+        t = torch.randint(0, p, (n, c), generator=g)
+        return torch.where(torch.rand((n, c), generator=g) < named, t, -1)
+
     out = {}
-    for w in (9, 25):
-        rows = torch.randn((50, w), generator=g).to(device)
+    for w in (1, 9, 25, 40, 70):
+        rows = torch.randn((p, w), generator=g).to(device)
         cases = {
-            "c=1": torch.randint(-1, 50, (33, 1), generator=g),
-            "all -1 row": torch.cat([torch.randint(-1, 50, (7, 5), generator=g),
+            "c=1": torch.randint(-1, p, (33, 1), generator=g),
+            "all -1 row": torch.cat([torch.randint(-1, p, (7, 5), generator=g),
                                      torch.full((1, 5), -1)]),
             "N=0": torch.zeros((0, 4), dtype=torch.int64),
             "repeated slots": torch.tensor([[3, 3, 3, -1], [7, -1, 7, 7], [0, 1, 0, 1]]),
+            "c=33": sparse(509, 33),
+            "c=700": sparse(40, 700),
+            "c=2500": sparse(5, 2500),
+            "N=509, c=12": sparse(509, 12),
+            "every slot named, c=12": sparse(509, 12, named=1.0),
+            "every slot named, c=2500": sparse(3, 2500, named=1.0),
+            "one pair along a row": torch.tensor([[7] * 40, [-1] * 20 + [3] * 20, [5, -1] * 20]),
         }
         for name, table in cases.items():
             table = table.to(torch.int32).to(device)
@@ -690,10 +714,30 @@ def gather_sum_edges(device) -> dict:
     return out
 
 
+def wide_table(table):
+    """Phase 3's slot table widened to `WIDE_SUM_TABLE`: its first rows in
+    the first columns and -1 past them, as the binning packs a gaussian's
+    pairs left."""
+    import torch
+
+    n, c = WIDE_SUM_TABLE
+    wide = torch.full((n, c), -1, dtype=torch.int32, device=table.device)
+    wide[:, :table.shape[1]] = table[:n]
+    return wide
+
+
+def sum_bytes(table, w: int) -> int:
+    """The bytes `gather_sum_rows` must move: the table, each named row of
+    w floats once, each output row once."""
+    return (table.numel() + (int((table >= 0).sum()) + table.shape[0]) * w) * 4
+
+
 def phase_main_shapes(scene, cams, pairs, tx_ty):
     """Phase 3: both blend kernels and the backward's per-gaussian sum
     against the plain version at the main path's shapes, with their times
-    and bounds, and `index_add_`'s time for the sum."""
+    and bounds, and `index_add_`'s time for the sum; the sum also on
+    `wide_table` of the slot table (equal to the plain version and to the
+    narrow table's sums), with its time and bound."""
     import torch
 
     from gsattack_torch.ops import blend
@@ -730,6 +774,15 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
     if not sum_equal:
         raise AssertionError("phase 3: gather_sum_rows differs from its plain version")
     gather_sum_edges(plain_in[0].device)
+    with torch.no_grad():
+        wide = wide_table(table)
+        wide_sum = gather_sum_rows(rows, wide)
+        wide_equal = (torch.equal(wide_sum, gather_sum_rows_plain(rows, wide))
+                      and torch.equal(wide_sum, summed[:wide.shape[0]]))
+    del wide_sum
+    if not wide_equal:
+        raise AssertionError("phase 3: gather_sum_rows on the wide table differs from its plain "
+                             "version or from the narrow table's sums")
 
     with torch.no_grad():
         fwd_ms = cuda_ms(lambda: blend.forward_kernel(*idx, *plain_in, *tiles, cap), reps=10)
@@ -737,6 +790,7 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
             lambda: blend.backward_kernel(*idx, *plain_in, *tiles, T_k, last, g_img, g_t), reps=10
         )
         sum_ms = cuda_ms(lambda: gather_sum_rows(rows, table), reps=10)
+        wide_ms = cuda_ms(lambda: gather_sum_rows(rows, wide), reps=10)
         both_ms = cuda_ms(
             lambda: kernel_grads(idx, plain_in, tiles, T_k, last, g_img, g_t, table), reps=10
         )
@@ -765,7 +819,9 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
     ranges = 2 * bins.tile_start.numel() * 4
     fwd_bytes = 4 * n_pairs + ranges + per_gauss + pixels * (ch + 2) * 4
     bwd_bytes = 4 * n_pairs + ranges + per_gauss + pixels * (ch + 3) * 4 + pair_rows
-    sum_bytes = table.numel() * 4 + named * (6 + ch) * 4 + per_gauss
+    sum_b = sum_bytes(table, 6 + ch)
+    wide_named = int((wide >= 0).sum())
+    wide_b = sum_bytes(wide, 6 + ch)
 
     def bound(nbytes, ops):
         t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
@@ -777,11 +833,14 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
     sum_ops = named * (6 + ch)
     fwd_bound = bound(fwd_bytes, fwd_ops)
     bwd_bound = bound(bwd_bytes, bwd_ops)
-    sum_bound = bound(sum_bytes, sum_ops)
-    both_bound = bound(bwd_bytes + sum_bytes, bwd_ops + sum_ops)
+    sum_bound = bound(sum_b, sum_ops)
+    wide_bound = bound(wide_b, wide_named * (6 + ch))
+    del wide
+    both_bound = bound(bwd_bytes + sum_b, bwd_ops + sum_ops)
     log("  pixel-pairs: " + ", ".join(f"{k} {val}" for k, val in work.items())
         + f"; fwd {fwd_bytes} B, {fwd_ops} ops; bwd {bwd_bytes} B, {bwd_ops} ops; "
-        f"gather_sum {sum_bytes} B, {sum_ops} ops")
+        f"gather_sum {sum_b} B, {sum_ops} ops; on the {WIDE_SUM_TABLE} table {wide_b} B, "
+        f"{wide_named} slots named")
     per_step = bwd_shuffles(ch)
     shuffles = [work["warp_live"] * s for s in per_step]
     log(f"  backward (warp, pair) steps with a live lane: {work['warp_live']}; warp shuffles "
@@ -791,9 +850,10 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
         f"by {fwd_bound[1]}); blend_bwd {bwd_ms:.4f} ms (bound {bwd_bound[0]:.4f} ms by "
         f"{bwd_bound[1]}); gather_sum_rows {sum_ms:.4f} ms (plain {plain_sum_ms:.3f} ms, bound "
         f"{sum_bound[0]:.4f} ms by {sum_bound[1]}; index_add_ {library_ms:.4f} ms, max abs "
-        f"{sum_err:.2e} from it); the backward, both kernels, {both_ms:.4f} ms (plain "
-        f"{plain_bwd_ms:.1f} ms, bound {both_bound[0]:.4f} ms by {both_bound[1]}), against "
-        f"{FUSED_BWD_MS} ms for the fused atomic kernel it replaces")
+        f"{sum_err:.2e} from it), on the {WIDE_SUM_TABLE} table {wide_ms:.4f} ms (bound "
+        f"{wide_bound[0]:.4f} ms by {wide_bound[1]}); the backward, both kernels, "
+        f"{both_ms:.4f} ms (plain {plain_bwd_ms:.1f} ms, bound {both_bound[0]:.4f} ms by "
+        f"{both_bound[1]}), against {FUSED_BWD_MS} ms for the fused atomic kernel it replaces")
     return {
         "n_pairs": n_pairs,
         "num_culled_pairs": int(bins.num_culled_pairs),
@@ -807,7 +867,8 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
         "gather_sum": dict(max_abs_err=0.0 if sum_equal else float("inf"), ms=sum_ms,
                            plain_ms=plain_sum_ms, bound_ms=sum_bound[0],
                            bound_by=sum_bound[1], library_ms=library_ms,
-                           library_max_abs_err=sum_err),
+                           library_max_abs_err=sum_err, wide_ms=wide_ms,
+                           wide_bound_ms=wide_bound[0], wide_table=list(WIDE_SUM_TABLE)),
         "backward": dict(ms=both_ms, bound_ms=both_bound[0], bound_by=both_bound[1],
                          fused_atomic_ms=FUSED_BWD_MS),
         "rerun": lambda: kernel_grads(idx, plain_in, tiles, T_k, last, g_img, g_t, table)[0],
@@ -2996,7 +3057,8 @@ def main() -> int:
          "cli_launches": cli_launches["gather_sum"], "mesh_launches": mesh_launches["gather_sum"],
          "caps_launches": caps["a"]["launches"]["gather_sum"],
          **{k: shapes["gather_sum"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                  "bound_by", "library_ms")}},
+                                                  "bound_by", "library_ms", "wide_ms",
+                                                  "wide_bound_ms", "wide_table")}},
         {"name": "gather_rows", "route": "cuda", "source": "gsattack_torch/csrc/gather.cu",
          "replaces": "gsattack/ops/pallas_gather.py:35", "launches": main["launches"]["gather"],
          "micro_bench_launches": gathered["micro_bench_launches"],

@@ -9,21 +9,55 @@
 // (G * c, W) rows and a windowed sum (gsattack/ops/pallas_blend.py
 // _gather_sum_rows); that step has no Pallas kernel. The sum is taken in
 // a fixed order, so two calls on the same inputs agree bit for bit, where
-// atomics (or torch.index_add_) would not.
-//
-// Design. A group of GW lanes (8, 16 or 32, the least that holds W, or 32
-// with a loop over column blocks) owns one gaussian; lane q of the group
-// owns column q. The group reads its table row GW entries at a time, one
-// entry a lane, coalesced; a warp ballot gives each group the columns that
-// hold a pair, and the group walks them in ascending j, each lane adding
-// its column of that pair's row (a row is W contiguous floats, so the
-// group's loads are one contiguous piece). Only the rows the table names
-// are read: on the main path about 3 of the c columns a gaussian. Every
-// output row is written, zero where the table names no pair.
+// atomics (or torch.index_add_) would not. There are no atomics.
 //
 // What bounds it on an H100: bytes. It reads the table (4 c B a
 // gaussian), each named row once (4 W B) and writes each output row
-// (4 W B) once, and computes one add per named float.
+// (4 W B) once, and computes one add per named float. On the main path
+// about 1.5 of a gaussian's c = 12 columns are named, so the rows, read
+// at random (100 B at a 4-B alignment at 19 channels), are half the
+// bytes; a wide table (c in the thousands, as auto_caps sizes the
+// trainer's) is almost all table. What keeps a kernel from that bound is
+// latency: the row loads depend on the table loads, so a design that
+// walks one gaussian's entries one load at a time (as a warp a gaussian
+// did) waits on a round trip per entry with little in flight; and a wide
+// table's entries are nearly all -1, so each may cost a few instructions
+// at most.
+//
+// Design. A CTA of 256 threads owns `block` consecutive gaussians, whose
+// table rows are one contiguous piece of block * c entries, in chunks of
+// CHUNK = 256 * TPT entries (entry i * 256 + tid of a chunk is thread
+// tid's i-th). Where c <= 512 (gather_sum_narrow_kernel) the piece is one
+// chunk of 512 entries at most (block = 512 / c, at most MAX_BLOCK: 42
+// gaussians at c = 12); a wider table (gather_sum_wide_kernel) gives a CTA
+// about WIDE_SPAN entries, walked a 1,024-entry chunk at a time through a
+// ring of WIDE_STAGES chunks that cp.async fills ahead. For each chunk:
+//  1. Every thread loads its TPT entries, coalesced, all in flight at once.
+//  2. The named entries are compacted into a shared list in (gaussian, j)
+//     order: a ballot per (entry slot, warp), one warp's scan over the
+//     SLOTS counts, and each entry's rank in its ballot. The list position
+//     of the first entry of each gaussian's row follows from the same
+//     counts and ballots, so gaussian k of the chunk owns list entries
+//     [seg[k], seg[k + 1]); nothing is divided per entry. A chunk inside
+//     one gaussian's row that names nothing (one block-wide vote) stops
+//     here.
+//  3. All threads stage the listed rows into shared memory: thread (e,
+//     col) of a (per x wb) grid copies column col of entries e, e + per,
+//     ..., by 4-byte cp.async, so every load of the CTA (about 1,550 at c
+//     = 12, W = 25) is in flight at once and no register waits on one.
+//     The wide kernel's chunks name a few rows at most; it loads them
+//     plainly, so that its waits on the ring stay its own.
+//  4. Thread (k, col) adds gaussian k's staged values in list order,
+//     starting from 0.0f, the order of gather_sum_rows_plain, and stores
+//     the (gaussians, W) block, which is contiguous, coalesced. Every
+//     output row is written, zero where the table names nothing.
+// Wide rows (W > COLS) are summed COLS columns at a time, and a chunk with
+// more named values than its staging holds is summed in passes. A
+// gaussian whose sum runs on past a pass or a chunk keeps its partial sum
+// in `out` (written and read back by the CTA that owns it, across
+// __syncthreads), so the additions stay in j order. Shared memory is
+// static (about 19 KB narrow, 24 KB wide) and registers at most 32, so an
+// SM holds eight CTAs of either.
 
 #include <cuda_runtime.h>
 
@@ -33,45 +67,217 @@ namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int THREADS = 256;
-constexpr int ERR_WIDTH = -1;  // W < 1
+constexpr int WARPS = THREADS / 32;
+constexpr int NARROW_TPT = 2;       // table entries a thread loads, c <= THREADS * 2
+constexpr int WIDE_TPT = 4;         // and per chunk of a wider table
+constexpr int MAX_BLOCK = 256;      // gaussians a CTA owns, at most
+constexpr int WIDE_SPAN = 16384;    // table entries a CTA owns in a wider table
+constexpr int VALS = 4096;          // staged row values (16 KB)
+constexpr int WIDE_VALS = 2048;     // and in a wider table, whose rows name few
+constexpr int WIDE_STAGES = 3;      // chunks of a wider table in flight or in use
+constexpr int COLS = 64;            // columns summed per pass over the list
+constexpr int MIN_CTAS = 8;         // CTAs an SM holds: at most 32 registers
+constexpr int ERR_WIDTH = -1;       // W < 1
 
-template <int GW>
-__global__ void __launch_bounds__(THREADS)
-gather_sum_rows_kernel(const float* __restrict__ rows, const int* __restrict__ table,
-                       int64_t n, int c, int w, float* __restrict__ out) {
-  constexpr int GROUPS = 32 / GW;  // gaussians a warp
-  const int lane = threadIdx.x & 31, q = lane % GW, grp = lane / GW;
-  const int64_t g = (static_cast<int64_t>(blockIdx.x) * (THREADS / 32) + threadIdx.x / 32) *
-                        GROUPS + grp;
-  const bool active = g < n;  // every lane takes part in the ballots
-  const int* trow = table + (active ? g : 0) * c;
-  const unsigned gmask = GW == 32 ? FULL : ((1u << GW) - 1u) << (grp * GW);
-  for (int col0 = 0; col0 < w; col0 += GW) {
-    const int col = col0 + q;
-    float acc = 0.0f;
-    for (int j0 = 0; j0 < c; j0 += GW) {
-      const int j = j0 + q;
-      const int r = active && j < c ? __ldg(trow + j) : -1;
-      unsigned m = (__ballot_sync(FULL, r >= 0) & gmask) >> (grp * GW);
-      while (m) {
-        const int b = __ffs(m) - 1;
-        m &= m - 1;
-        const int rb = __ldg(trow + j0 + b);  // the entry lane b read, from L1
-        if (col < w) acc += __ldg(rows + static_cast<int64_t>(rb) * w + col);
-      }
+// Shared memory of one chunk's compaction: CHUNK entries, SLOTS ballots.
+template <int TPT>
+struct Chunk {
+  static constexpr int CHUNK = THREADS * TPT, SLOTS = CHUNK / 32;
+  static_assert(SLOTS <= 64 && SLOTS % 2 == 0, "one warp scans the ballot counts, two a lane");
+  int list[CHUNK];         // the chunk's named pairs, (gaussian, j) order
+  unsigned named[SLOTS];   // each (slot, warp)'s ballot
+  int base[SLOTS + 1];     // named entries before each; the total
+};
+
+// Step 2 for one chunk of `len` entries whose position q is entry q / THREADS
+// of thread q % THREADS (`cur`), the first of them column `off` of the
+// chunk's first gaussian, `ng` gaussians meeting it: the list and seg.
+// Returns the number of named entries; the caller syncs before reading.
+template <int TPT>
+__device__ __forceinline__ int compact(const int (&cur)[TPT], int len, int ng, int off, int c,
+                                       Chunk<TPT>& sh, int* seg) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  unsigned m[TPT];
+#pragma unroll
+  for (int i = 0; i < TPT; ++i) m[i] = __ballot_sync(FULL, cur[i] >= 0);
+  if (lane == 0) {
+#pragma unroll
+    for (int i = 0; i < TPT; ++i) sh.named[i * WARPS + warp] = m[i];
+  }
+  __syncthreads();
+  constexpr int SLOTS = Chunk<TPT>::SLOTS;
+  if (warp == 0) {  // exclusive scan of the counts in (slot, warp) order
+    const int a = 2 * lane < SLOTS ? __popc(sh.named[2 * lane]) : 0;
+    const int b = 2 * lane < SLOTS ? __popc(sh.named[2 * lane + 1]) : 0;
+    int incl = a + b;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(FULL, incl, d);
+      if (lane >= d) incl += t;
     }
-    if (active && col < w) out[g * w + col] = acc;
+    if (2 * lane < SLOTS) {
+      sh.base[2 * lane] = incl - a - b;
+      sh.base[2 * lane + 1] = incl - b;
+    }
+    if (lane == 31) sh.base[SLOTS] = incl;
+  }
+  __syncthreads();
+  const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+  for (int i = 0; i < TPT; ++i) {
+    if (cur[i] >= 0) sh.list[sh.base[i * WARPS + warp] + __popc(m[i] & below)] = cur[i];
+  }
+  // Chunk position q is (slot, warp) q / 32, lane q % 32: the named
+  // entries before it are base[q / 32] and those of its ballot below it.
+  const int total = sh.base[SLOTS];
+  for (int k = tid; k <= ng; k += THREADS) {
+    const int q = k == 0 ? 0 : (k == ng ? len : k * c - off);
+    seg[k] = q == len ? total
+                      : sh.base[q >> 5] + __popc(sh.named[q >> 5] & ((1u << (q & 31)) - 1u));
+  }
+  return total;
+}
+
+// Four bytes from device memory into shared memory, asynchronously: no
+// register holds them in flight (cp.async.wait_* waits for a thread's).
+__device__ __forceinline__ void copy_async(void* to, const void* from) {
+  const unsigned smem = static_cast<unsigned>(__cvta_generic_to_shared(to));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem), "l"(from) : "memory");
+}
+
+// Steps 3 and 4 for one chunk: `total` listed entries, gaussian k of the
+// `ng` owning [seg[k], seg[k + 1]), its output row at dst + k * w. The
+// rows are staged into `vals` (NVALS floats) by cp.async (ASYNC: all of a
+// thread's loads in flight at once, and cp.async.wait_all waits for every
+// group of the thread) or by plain loads.
+template <bool ASYNC, int NVALS>
+__device__ __forceinline__ void sum_chunk(const float* __restrict__ rows, int w, int total,
+                                          int ng, bool began, const int* list, float* vals,
+                                          const int* seg, float* dst) {
+  const int tid = threadIdx.x;
+  for (int cb = 0; cb < w; cb += COLS) {
+    const int wb = min(COLS, w - cb);
+    const int per = THREADS / wb;  // entries staged, and gaussians summed, a step
+    const int row = tid / wb, col = tid - row * wb;
+    const bool on = row < per;
+    const int cap = NVALS / wb;  // entries staged a pass
+    const float* src = rows + cb + col;
+    for (int e0 = 0;; e0 += cap) {
+      const int e1 = min(total, e0 + cap);
+      if (on) {
+        for (int x = e0 + row; x < e1; x += per) {
+          float* to = vals + (x - e0) * wb + col;
+          const float* from = src + static_cast<int64_t>(list[x]) * w;
+          if (ASYNC) {
+            copy_async(to, from);
+          } else {
+            *to = __ldg(from);
+          }
+        }
+      }
+      if (ASYNC) asm volatile("cp.async.wait_all;\n" ::: "memory");
+      __syncthreads();
+      if (on) {
+        for (int k = row; k < ng; k += per) {
+          const int lo = max(seg[k], e0), hi = min(seg[k + 1], e1);
+          const bool partial = e0 > 0 || (k == 0 && began);
+          if (partial && lo >= hi) continue;  // out already holds its sum so far
+          float* o = dst + static_cast<int64_t>(k) * w + cb + col;
+          float acc = partial ? *o : 0.0f;
+          for (int e = lo; e < hi; ++e) acc += vals[(e - e0) * wb + col];
+          *o = acc;
+        }
+      }
+      __syncthreads();
+      if (e1 >= total) break;
+    }
   }
 }
 
-template <int GW>
-int launch(const float* rows, const int* table, int64_t n, int c, int w, float* out,
-           cudaStream_t stream) {
-  const int64_t per_block = (THREADS / 32) * (32 / GW);
-  const int64_t blocks = (n + per_block - 1) / per_block;
-  gather_sum_rows_kernel<GW><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
-      rows, table, n, c, w, out);
-  return static_cast<int>(cudaGetLastError());
+// Tables of c <= THREADS * TPT: a CTA's rows are one chunk.
+template <int TPT>
+__global__ void __launch_bounds__(THREADS, MIN_CTAS)
+gather_sum_narrow_kernel(const float* __restrict__ rows, const int* __restrict__ table,
+                         int64_t n, int c, int w, int block, float* out) {
+  __shared__ Chunk<TPT> sh;
+  __shared__ float vals[VALS];        // the rows' values, entry-major
+  __shared__ int seg[MAX_BLOCK + 1];  // gaussian k's entries: [seg[k], seg[k + 1])
+  const int tid = threadIdx.x;
+  const int64_t g0 = static_cast<int64_t>(blockIdx.x) * block;
+  const int nb = static_cast<int>(n - g0 < block ? n - g0 : block), span = nb * c;
+  const int* tab = table + g0 * c;
+  int cur[TPT];
+#pragma unroll
+  for (int i = 0; i < TPT; ++i) {
+    const int p = i * THREADS + tid;
+    cur[i] = p < span ? __ldg(tab + p) : -1;
+  }
+  const int total = compact<TPT>(cur, span, nb, 0, c, sh, seg);
+  __syncthreads();
+  sum_chunk<true, VALS>(rows, w, total, nb, false, sh.list, vals, seg, out + g0 * w);
+}
+
+// Wider tables: a CTA's rows, about WIDE_SPAN entries, a chunk at a time
+// through a ring of STAGES chunks that cp.async fills ahead: each thread
+// copies the entries it reads, so it waits for its own copies alone, and
+// a ring slot is refilled only after its reader has read it.
+template <int TPT, int STAGES>
+__global__ void __launch_bounds__(THREADS, MIN_CTAS)
+gather_sum_wide_kernel(const float* __restrict__ rows, const int* __restrict__ table,
+                       int64_t n, int c, int w, int block, float* out) {
+  constexpr int CHUNK = Chunk<TPT>::CHUNK;
+  __shared__ Chunk<TPT> sh;
+  __shared__ int ring[STAGES][CHUNK];
+  __shared__ float vals[WIDE_VALS];
+  __shared__ int seg[CHUNK / 512 + 3];  // ng + 1, and ng <= CHUNK / c + 2 with c > 512
+  const int tid = threadIdx.x;
+  const int64_t g0 = static_cast<int64_t>(blockIdx.x) * block;
+  const int span = static_cast<int>(n - g0 < block ? n - g0 : block) * c;
+  const int chunks = (span + CHUNK - 1) / CHUNK;
+  const int* tab = table + g0 * c;
+  float* dst = out + g0 * w;
+
+  auto stage = [&](int k) {  // chunk k into its ring slot, one group
+    if (k < chunks) {
+#pragma unroll
+      for (int i = 0; i < TPT; ++i) {
+        const int q = i * THREADS + tid, p = k * CHUNK + q;
+        int* to = &ring[k % STAGES][q];
+        if (p < span) {
+          copy_async(to, tab + p);
+        } else {
+          *to = -1;
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  for (int k = 0; k < STAGES - 1; ++k) stage(k);
+  // The chunk's first entry: column `off` of the CTA's gaussian g_lo.
+  int g_lo = 0, off = 0;
+  for (int k = 0; k < chunks; ++k) {
+    stage(k + STAGES - 1);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 1) : "memory");
+    int cur[TPT];
+#pragma unroll
+    for (int i = 0; i < TPT; ++i) cur[i] = ring[k % STAGES][i * THREADS + tid];
+    const int len = min(CHUNK, span - k * CHUNK);
+    // The rows that meet the chunk. Where the first began in an earlier
+    // chunk (`began`), its sum so far is in out, and a chunk of that row
+    // alone that names nothing changes nothing.
+    const int ng = c > CHUNK ? 1 + (off + len > c) : (off + len - 1) / c + 1;
+    const bool began = off != 0;
+    bool any = false;
+#pragma unroll
+    for (int i = 0; i < TPT; ++i) any |= cur[i] >= 0;
+    if (!(began && ng == 1 && !__syncthreads_or(any))) {
+      const int total = compact<TPT>(cur, len, ng, off, c, sh, seg);
+      __syncthreads();
+      sum_chunk<false, WIDE_VALS>(rows, w, total, ng, began, sh.list, vals, seg,
+                                  dst + static_cast<int64_t>(g_lo) * w);
+    }
+    for (off += len; off >= c; off -= c) ++g_lo;
+  }
 }
 
 }  // namespace
@@ -79,12 +285,25 @@ int launch(const float* rows, const int* table, int64_t n, int c, int w, float* 
 // Plain C entry point for ctypes: rows (P, w) float32, table (n, c) int32
 // with entries in [-1, P), out (n, w) float32, all contiguous device
 // memory. Returns cudaGetLastError() after the launch (0 = launched), or
-// ERR_WIDTH. The wrapper launches nothing for n = 0.
+// ERR_WIDTH. A table of no columns gives zeros (a memset). The wrapper
+// launches nothing for n = 0.
 extern "C" int gs_gather_sum_rows(const float* rows, const int* table, int64_t n, int c,
                                   int w, float* out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w < 1) return ERR_WIDTH;
-  if (w <= 8) return launch<8>(rows, table, n, c, w, out, s);
-  if (w <= 16) return launch<16>(rows, table, n, c, w, out, s);
-  return launch<32>(rows, table, n, c, w, out, s);
+  if (n <= 0) return 0;
+  if (c <= 0) return static_cast<int>(cudaMemsetAsync(out, 0, n * w * sizeof(float), s));
+  constexpr int narrow = Chunk<NARROW_TPT>::CHUNK;
+  const bool wide = c > narrow;
+  int block = wide ? WIDE_SPAN / c : narrow / c;
+  block = block < 1 ? 1 : (block > MAX_BLOCK ? MAX_BLOCK : block);
+  const unsigned blocks = static_cast<unsigned>((n + block - 1) / block);
+  if (wide) {
+    gather_sum_wide_kernel<WIDE_TPT, WIDE_STAGES><<<blocks, THREADS, 0, s>>>(rows, table, n, c,
+                                                                             w, block, out);
+  } else {
+    gather_sum_narrow_kernel<NARROW_TPT><<<blocks, THREADS, 0, s>>>(rows, table, n, c, w, block,
+                                                                   out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

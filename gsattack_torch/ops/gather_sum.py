@@ -10,6 +10,14 @@ counterpart of the reference's XLA table backward
 kernel. The order of the sum is fixed, so the result is reproducible bit
 for bit, on the card and on the CPU.
 
+The kernel (two instantiations, chosen by the table's width c) gives a CTA
+a block of consecutive gaussians, compacts the entries their table rows
+name into shared memory, stages the named rows there by cp.async with all
+of a CTA's loads in flight at once, and adds each gaussian's rows in j
+order, as `gather_sum_rows_plain` does; a table wider than 512 columns is
+walked in chunks through a ring that cp.async fills ahead
+(`csrc/gather_sum.cu` has the design and what bounds it).
+
 `gather_sum_rows` launches the kernel for CUDA tensors and sends CPU
 tensors to `gather_sum_rows_plain`, which is also the kernel's oracle. A
 build or launch failure raises; nothing on a CUDA tensor takes the plain

@@ -1,6 +1,7 @@
-"""The tile blend's kernels of one or more checkouts, timed on one card in
-the order given, at the main path's shapes (`chip_smoke.py` phase 3: 100k
-splats, SH3, 800x800, 4 views, 19 channels):
+"""The tile blend's kernels and the backward's per-gaussian sum of one or
+more checkouts, timed on one card in the order given, at the main path's
+shapes (`chip_smoke.py` phase 3: 100k splats, SH3, 800x800, 4 views, 19
+channels):
 
     python -m gsattack_torch.scripts.blend_ab ROOT [ROOT ...] [--reps 20]
         [--rounds 5] [--out FILE]
@@ -10,13 +11,16 @@ unpacked by `git archive <commit> gsattack_torch | tar -x -C build/ab/<name>`
 into a directory that `.gitignore` lists. Each ROOT runs in a process of its
 own, which imports `gsattack_torch` from ROOT (and this checkout's
 `chip_smoke.py` for the inputs), builds ROOT's kernels and prints ptxas's
-report for the blend kernels (registers, shared memory, spills, and the
-CTAs an SM can hold by those), holds both kernels against the plain version
-with the gates of `chip_smoke.py` (at these shapes, and on phase 2b's
-batch-edge and cap tiles), and times each as the mean over `--reps`
-launches between CUDA events, `--rounds` times, and the whole backward as
-autograd runs it (`blend_bwd` and, where ROOT's backward writes per-pair
-rows, `gather_sum_rows`). To compare two commits,
+report for the blend kernels and `gather_sum_rows` (registers, shared
+memory, spills, and the CTAs an SM can hold by those), holds both blend
+kernels against the plain version with the gates of `chip_smoke.py` (at
+these shapes, and on phase 2b's batch-edge and cap tiles), and times each
+as the mean over `--reps` launches between CUDA events, `--rounds` times,
+and the whole backward as autograd runs it (`blend_bwd` and, where ROOT's
+backward writes per-pair rows, `gather_sum_rows`). Where it does, the sum
+is also held to its plain version (`torch.equal`, on phase 3's table and
+`chip_smoke.gather_sum_edges`) and timed alone, on phase 3's slot table
+and on `chip_smoke.wide_table` of it. To compare two commits,
 give them in turns, parent, change, change, parent. The summary gives each
 ROOT's median over all its rounds; `--out` writes every run as JSON. Exits
 1 if any ROOT fails its build or a gate.
@@ -41,16 +45,20 @@ REGS_PER_SM, SMEM_PER_SM, THREADS = 65536, 233472, 256
 
 
 def ptxas_report(text: str) -> dict:
-    """Per blend kernel instantiation (`fwd<19>`, ...): registers, static
-    shared memory, stack frame and spill bytes, and the CTAs of 256 threads
-    an SM can hold
-    by registers (allocated per warp in units of 256) and by shared memory
-    (with the 1 KB the runtime reserves per CTA)."""
+    """Per blend kernel instantiation (`fwd<19>`, ...) and per kernel of
+    the per-gaussian sum (`gather_sum_narrow<2>`, `gather_sum_wide<4>`, or
+    the warp-a-gaussian `gather_sum_rows<32>` of older checkouts):
+    registers, static shared memory,
+    stack frame and spill bytes, and the CTAs of 256 threads an SM can
+    hold by registers (allocated per warp in units of 256) and by shared
+    memory (with the 1 KB the runtime reserves per CTA)."""
     out, name = {}, None
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '.*?blend_(fwd|bwd)_kernelILi(\d+)E", line)
+        m = re.search(r"Compiling entry function '.*?(?:blend_(fwd|bwd)|"
+                      r"(gather_sum_(?:rows|narrow|wide)))_kernel(?:ILi(\d+)E)?", line)
         if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
+            kernel = m.group(1) or m.group(2)
+            name = f"{kernel}<{m.group(3)}>" if m.group(3) else kernel
             out[name] = {}
             continue
         if name is None:
@@ -60,9 +68,9 @@ def ptxas_report(text: str) -> dict:
         if m:
             out[name]["stack_bytes"] = int(m.group(1))
             out[name]["spill_bytes"] = int(m.group(2)) + int(m.group(3))
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m:
-            regs, smem = int(m.group(1)), int(m.group(2))
+            regs, smem = int(m.group(1)), int(m.group(2) or 0)
             per_warp = -(-regs * 32 // 256) * 256
             by_regs = (REGS_PER_SM // per_warp) // (THREADS // 32)
             by_smem = SMEM_PER_SM // (smem + 1024)
@@ -107,17 +115,28 @@ def worker(root: str, reps: int, rounds: int) -> dict:
     idx = (bins.gauss_idx, bins.tile_start, bins.tile_end)
     cmp = smoke.kernels_vs_plain(idx, blend_in, tiles, cap)
     ok = cmp["fwd_err"] <= smoke.GATE_IMAGE and max(cmp["bwd_rel"].values()) <= smoke.GATE_GRAD
+    rows, table = cmp["rows"], cmp["slot_table"]
     with contextlib.redirect_stdout(io.StringIO()):
         try:
             smoke.phase_edge_tiles(device)  # batch edges and the cap, CH = 3 and 19
+            if rows is not None:
+                smoke.gather_sum_edges(device)
         except AssertionError as e:
             print(f"{root}: {e}", file=sys.stderr)
             ok = False
     plain_in = [x.detach() for x in blend_in]
     T, last, g_img, g_t = cmp["T"], cmp["last"], cmp["g_img"], cmp["g_T"]
-    table = cmp["slot_table"]
-    fwd_ms, bwd_ms, grad_ms = [], [], []
+    fwd_ms, bwd_ms, grad_ms, sum_ms, wide_ms = [], [], [], [], []
     with torch.no_grad():
+        if rows is not None:
+            from gsattack_torch.ops.gather_sum import gather_sum_rows, gather_sum_rows_plain
+
+            wide = smoke.wide_table(table)
+            summed = gather_sum_rows(rows, table)
+            if not (torch.equal(summed, gather_sum_rows_plain(rows, table))
+                    and torch.equal(gather_sum_rows(rows, wide), summed[:wide.shape[0]])):
+                print(f"{root}: gather_sum_rows differs from its plain version", file=sys.stderr)
+                ok = False
         for _ in range(rounds):
             fwd_ms.append(smoke.cuda_ms(
                 lambda: blend.forward_kernel(*idx, *plain_in, *tiles, cap), reps))
@@ -127,11 +146,15 @@ def worker(root: str, reps: int, rounds: int) -> dict:
             grad_ms.append(smoke.cuda_ms(
                 lambda: smoke.kernel_grads(idx, plain_in, tiles, T, last, g_img, g_t, table),
                 reps))
+            if rows is not None:
+                sum_ms.append(smoke.cuda_ms(lambda: gather_sum_rows(rows, table), reps))
+                wide_ms.append(smoke.cuda_ms(lambda: gather_sum_rows(rows, wide), reps))
     return {
         "root": root, "ok": ok, "card": smoke.nvidia_smi(), "build_s": build_s,
         "ptxas": ptxas_report(buf.getvalue()), "n_pairs": int(bins.gauss_idx.shape[0]),
         "fwd_err": cmp["fwd_err"], "bwd_rel": cmp["bwd_rel"],
-        "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "grad_ms": grad_ms,
+        "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "grad_ms": grad_ms, "sum_ms": sum_ms,
+        "wide_ms": wide_ms, "wide_table": list(smoke.WIDE_SUM_TABLE),
     }
 
 
@@ -167,7 +190,9 @@ def main(argv=None) -> int:
               f"gradients max rel {max(run['bwd_rel'].values()):.3e}; "
               f"fwd ms {' '.join(f'{t:.4f}' for t in run['fwd_ms'])}; "
               f"bwd ms {' '.join(f'{t:.4f}' for t in run['bwd_ms'])}; "
-              f"whole backward ms {' '.join(f'{t:.4f}' for t in run['grad_ms'])}", flush=True)
+              f"whole backward ms {' '.join(f'{t:.4f}' for t in run['grad_ms'])}; "
+              f"gather_sum_rows ms {' '.join(f'{t:.4f}' for t in run['sum_ms'])}; "
+              f"on the wide table {' '.join(f'{t:.4f}' for t in run['wide_ms'])}", flush=True)
         for name, rep in sorted(run["ptxas"].items()):
             print(f"  {name}: {rep}", flush=True)
         if not run["ok"]:
@@ -179,8 +204,13 @@ def main(argv=None) -> int:
         fwd = statistics.median(t for r in mine for t in r["fwd_ms"])
         bwd = statistics.median(t for r in mine for t in r["bwd_ms"])
         grad = statistics.median(t for r in mine for t in r["grad_ms"])
+        sums = [t for r in mine for t in r["sum_ms"]]
+        wides = [t for r in mine for t in r["wide_ms"]]
+        alone = (f", gather_sum_rows {statistics.median(sums):.4f} ms, on the "
+                 f"{tuple(mine[0]['wide_table'])} table {statistics.median(wides):.4f} ms"
+                 if sums else "")
         print(f"  {root}: blend_fwd {fwd:.4f} ms, blend_bwd {bwd:.4f} ms, the whole backward "
-              f"{grad:.4f} ms ({len(mine)} runs)")
+              f"{grad:.4f} ms{alone} ({len(mine)} runs)")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(runs, indent=1))
