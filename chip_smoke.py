@@ -34,10 +34,8 @@ Phases (any failure raises and exits non-zero):
      each kernel's time, the plain version's time and the least time the
      card could take (its bound), from the (pixel, pair) work these inputs
      need; `gather_sum_rows` equal to its plain version (`torch.equal`) and
-     timed beside `index_add_`, on its edge cases (`gather_sum_edges`),
-     and timed with its bound on a wide table of phase 11c's shape
-     (110,000 x 2500, `wide_table`; equal to the plain version and to the
-     narrow table's sums), the two backward kernels timed apart and
+     timed beside `index_add_`, and on its edge cases (`gather_sum_edges`),
+     the two backward kernels timed apart and
      together beside the fused atomic kernel's 0.8637 ms they replace; and
      the backward's (warp, pair) steps with a live lane, with the warp
      shuffles that summing their gradients takes by a butterfly per value
@@ -176,7 +174,9 @@ Phases (any failure raises and exits non-zero):
      binning's, both kernels against the plain version under all three
      (phase 3's gates); (c) `Trainer` with `auto_caps`-sized caps for 50
      steps of phase 7b's schedule: finite losses, every blend kernel
-     launched each step.
+     launched each step; then `gather_sum_rows` on the slot table of the
+     trainer's first step at those caps (`trainer_slot_table`, 110,000 x
+     2500), equal to its plain version, timed with its bound.
 
 Prints the card's line and the kernels as one JSON line, then the ok
 line last.
@@ -220,10 +220,6 @@ GATE_GRAD = 1e-3
 # gather_sum_rows replace, at phase 3's shapes, as phase 3 measured it on
 # an NVIDIA H100 80GB HBM3 at 700 W (PERF.md's kernel table).
 FUSED_BWD_MS = 0.8637
-# Phase 3 also times the sum on a wide slot table of phase 11c's shape:
-# the trainer's capacity (TRAIN_SPLATS at the 1.1 capacity headroom) by
-# the pairs_per_gaussian of 2500 that auto_caps gave it on the card.
-WIDE_SUM_TABLE = (110_000, 2500)
 CHUNK, MAX_CHUNKS = 128, 16
 EDGE_BATCHES = (32, 64)  # pairs staged per step: blend.cu's BWD_BATCH, FWD_BATCH
 # The row gather's sizes: the 500k-splat scene's gathers, as the JAX
@@ -665,10 +661,10 @@ def gather_sum_edges(device) -> dict:
     """`gather_sum_rows` on its edge cases, at W of 1, 9, 25 (3 and 19
     channels), 40 and 70 (past the kernel's 64-column pass): c = 1, a row
     of -1 only, N = 0 (no launch), repeated slots, c = 33, c = 700 and c =
-    2500 (the wide kernel: rows that share a chunk, and rows over several
-    chunks), 509 gaussians at c = 12 (a prime, so no multiple of a CTA's
-    gaussian block), every slot named (c = 12 and c = 2500), one pair
-    named along whole rows; each equal to the plain version
+    2500 (tables wider than a chunk: rows that share a chunk, and rows
+    over several chunks), 509 gaussians at c = 12 (a prime, so no
+    multiple of a CTA's gaussian block), every slot named (c = 12 and c =
+    2500), one pair named along whole rows; each equal to the plain version
     (`torch.equal`), with one launch (none for N = 0)."""
     import torch
 
@@ -714,16 +710,11 @@ def gather_sum_edges(device) -> dict:
     return out
 
 
-def wide_table(table):
-    """Phase 3's slot table widened to `WIDE_SUM_TABLE`: its first rows in
-    the first columns and -1 past them, as the binning packs a gaussian's
-    pairs left."""
-    import torch
-
-    n, c = WIDE_SUM_TABLE
-    wide = torch.full((n, c), -1, dtype=torch.int32, device=table.device)
-    wide[:, :table.shape[1]] = table[:n]
-    return wide
+def bound(nbytes, ops) -> tuple[float, str]:
+    """The least time in ms for `nbytes` moved and `ops` fp32 operations
+    done at the card's peak rates, and which of the two sets it."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def sum_bytes(table, w: int) -> int:
@@ -735,9 +726,7 @@ def sum_bytes(table, w: int) -> int:
 def phase_main_shapes(scene, cams, pairs, tx_ty):
     """Phase 3: both blend kernels and the backward's per-gaussian sum
     against the plain version at the main path's shapes, with their times
-    and bounds, and `index_add_`'s time for the sum; the sum also on
-    `wide_table` of the slot table (equal to the plain version and to the
-    narrow table's sums), with its time and bound."""
+    and bounds, and `index_add_`'s time for the sum."""
     import torch
 
     from gsattack_torch.ops import blend
@@ -774,15 +763,6 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
     if not sum_equal:
         raise AssertionError("phase 3: gather_sum_rows differs from its plain version")
     gather_sum_edges(plain_in[0].device)
-    with torch.no_grad():
-        wide = wide_table(table)
-        wide_sum = gather_sum_rows(rows, wide)
-        wide_equal = (torch.equal(wide_sum, gather_sum_rows_plain(rows, wide))
-                      and torch.equal(wide_sum, summed[:wide.shape[0]]))
-    del wide_sum
-    if not wide_equal:
-        raise AssertionError("phase 3: gather_sum_rows on the wide table differs from its plain "
-                             "version or from the narrow table's sums")
 
     with torch.no_grad():
         fwd_ms = cuda_ms(lambda: blend.forward_kernel(*idx, *plain_in, *tiles, cap), reps=10)
@@ -790,7 +770,6 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
             lambda: blend.backward_kernel(*idx, *plain_in, *tiles, T_k, last, g_img, g_t), reps=10
         )
         sum_ms = cuda_ms(lambda: gather_sum_rows(rows, table), reps=10)
-        wide_ms = cuda_ms(lambda: gather_sum_rows(rows, wide), reps=10)
         both_ms = cuda_ms(
             lambda: kernel_grads(idx, plain_in, tiles, T_k, last, g_img, g_t, table), reps=10
         )
@@ -820,13 +799,6 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
     fwd_bytes = 4 * n_pairs + ranges + per_gauss + pixels * (ch + 2) * 4
     bwd_bytes = 4 * n_pairs + ranges + per_gauss + pixels * (ch + 3) * 4 + pair_rows
     sum_b = sum_bytes(table, 6 + ch)
-    wide_named = int((wide >= 0).sum())
-    wide_b = sum_bytes(wide, 6 + ch)
-
-    def bound(nbytes, ops):
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_FP32_S * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
     fwd_ops = (work["fwd_eval"] * OPS_ALPHA + work["live"] * OPS_FWD_LIVE(ch)
                + work["stops"] * OPS_FWD_STOP)
     bwd_ops = work["bwd_eval"] * OPS_ALPHA + work["live"] * OPS_BWD_LIVE(ch)
@@ -834,13 +806,10 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
     fwd_bound = bound(fwd_bytes, fwd_ops)
     bwd_bound = bound(bwd_bytes, bwd_ops)
     sum_bound = bound(sum_b, sum_ops)
-    wide_bound = bound(wide_b, wide_named * (6 + ch))
-    del wide
     both_bound = bound(bwd_bytes + sum_b, bwd_ops + sum_ops)
     log("  pixel-pairs: " + ", ".join(f"{k} {val}" for k, val in work.items())
         + f"; fwd {fwd_bytes} B, {fwd_ops} ops; bwd {bwd_bytes} B, {bwd_ops} ops; "
-        f"gather_sum {sum_b} B, {sum_ops} ops; on the {WIDE_SUM_TABLE} table {wide_b} B, "
-        f"{wide_named} slots named")
+        f"gather_sum {sum_b} B, {sum_ops} ops")
     per_step = bwd_shuffles(ch)
     shuffles = [work["warp_live"] * s for s in per_step]
     log(f"  backward (warp, pair) steps with a live lane: {work['warp_live']}; warp shuffles "
@@ -850,8 +819,7 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
         f"by {fwd_bound[1]}); blend_bwd {bwd_ms:.4f} ms (bound {bwd_bound[0]:.4f} ms by "
         f"{bwd_bound[1]}); gather_sum_rows {sum_ms:.4f} ms (plain {plain_sum_ms:.3f} ms, bound "
         f"{sum_bound[0]:.4f} ms by {sum_bound[1]}; index_add_ {library_ms:.4f} ms, max abs "
-        f"{sum_err:.2e} from it), on the {WIDE_SUM_TABLE} table {wide_ms:.4f} ms (bound "
-        f"{wide_bound[0]:.4f} ms by {wide_bound[1]}); the backward, both kernels, "
+        f"{sum_err:.2e} from it); the backward, both kernels, "
         f"{both_ms:.4f} ms (plain {plain_bwd_ms:.1f} ms, bound {both_bound[0]:.4f} ms by "
         f"{both_bound[1]}), against {FUSED_BWD_MS} ms for the fused atomic kernel it replaces")
     return {
@@ -867,8 +835,7 @@ def phase_main_shapes(scene, cams, pairs, tx_ty):
         "gather_sum": dict(max_abs_err=0.0 if sum_equal else float("inf"), ms=sum_ms,
                            plain_ms=plain_sum_ms, bound_ms=sum_bound[0],
                            bound_by=sum_bound[1], library_ms=library_ms,
-                           library_max_abs_err=sum_err, wide_ms=wide_ms,
-                           wide_bound_ms=wide_bound[0], wide_table=list(WIDE_SUM_TABLE)),
+                           library_max_abs_err=sum_err),
         "backward": dict(ms=both_ms, bound_ms=both_bound[0], bound_by=both_bound[1],
                          fused_atomic_ms=FUSED_BWD_MS),
         "rerun": lambda: kernel_grads(idx, plain_in, tiles, T_k, last, g_img, g_t, table)[0],
@@ -1813,22 +1780,16 @@ def train_stage_breakdown(trainer, cam, gt, reps: int = 3) -> dict:
     return ms
 
 
-def phase_train(device) -> dict:
-    """Phase 7b: COLMAP model out and back, the 3-NN initial scene, then
-    `Trainer.fit` at full width with checkpoints; gates on the loss, the
-    held-out PSNR, densify, capacity growth, the SH degree, the launches
-    and a checkpoint restore."""
-    import numpy as np
+def train_init(device):
+    """Phase 7b's views and initial scene: the target's 9 views and GT
+    renders, its points moved by noise written with the views as a COLMAP
+    text model and read back (`info`), and the 3-NN scene of those points.
+    Returns (exts, gts, info, init, the model's write-and-read seconds)."""
     import torch
 
     from gsattack_torch.core.scene import scene_from_points
     from gsattack_torch.core.sh import sh_to_rgb_dc
     from gsattack_torch.io import load_scene_info
-    from gsattack_torch.io.checkpoint import restore_checkpoint
-    from gsattack_torch.ops.knn import mean_knn_dist2
-    from gsattack_torch.render import render
-    from gsattack_torch.train import Trainer
-    from gsattack_torch.utils.losses import psnr
 
     target, exts, gts = training_views(device)
     g = torch.Generator().manual_seed(11)
@@ -1839,6 +1800,76 @@ def phase_train(device) -> dict:
         write_colmap_model(root, exts, pts.numpy(), cols.numpy())
         info = load_scene_info(root, shuffle=False)
         io_s = time.perf_counter() - t0
+    init = scene_from_points(info.points, info.colors, max_sh_degree=3,
+                             generator=torch.Generator().manual_seed(12), device=device)
+    return exts, gts, info, init, io_s
+
+
+def trainer_slot_table(init, ext, device):
+    """The slot table of phase 11c's first training step: `init` padded to
+    the trainer's capacity (`TRAIN_REDUCED`'s headroom), projected on
+    `ext`'s view and binned at the caps `auto_caps` gives that view
+    unpadded, as phase 11c sizes them. Returns the table (capacity,
+    pairs_per_gaussian) int32 and rows (pairs, 6 + CH) for
+    `gather_sum_rows` to sum over it: the shape the blend backward writes,
+    with random values made from a seed (they do not change the sum's
+    work)."""
+    import torch
+
+    from gsattack_torch.ops.project import project, stack_projections
+    from gsattack_torch.ops.raster import auto_caps, bin_views
+
+    cam = ext.build(device=device)
+    init = init.to(device)
+    with torch.no_grad():
+        pairs, rect, budget, compact, (ts, hb) = auto_caps(project(init, cam), cam.width,
+                                                           cam.height)
+        capacity = int(init.num_points * TRAIN_REDUCED["capacity_headroom"][1])
+        proj = stack_projections([project(init.pad_to(capacity), cam)])
+        bins = bin_views(proj, cam.width, cam.height, pairs, rect, tier_split=ts,
+                         heavy_budget=hb, pairs_budget=budget, compact_budget=compact)
+    w = 6 + proj.color.shape[-1] + proj.obj.shape[-1]
+    g = torch.Generator(device=device).manual_seed(13)
+    rows = torch.randn((bins.gauss_idx.shape[0], w), generator=g, device=device)
+    return bins.slot_table, rows
+
+
+def wide_sum(table, rows) -> dict:
+    """`gather_sum_rows` of `rows` over `table`: equal to its plain
+    version, its time and byte bound, and how the named slots fall over
+    the table's rows."""
+    import torch
+
+    from gsattack_torch.ops.gather_sum import gather_sum_rows, gather_sum_rows_plain
+
+    w = rows.shape[1]
+    per_row = (table >= 0).sum(1)
+    with torch.no_grad():
+        equal = torch.equal(gather_sum_rows(rows, table), gather_sum_rows_plain(rows, table))
+        ms = cuda_ms(lambda: gather_sum_rows(rows, table), reps=10)
+    named = int(per_row.sum())
+    bound_ms, by = bound(sum_bytes(table, w), named * w)
+    return {"table": list(table.shape), "w": w, "named": named,
+            "rows_naming_any": int((per_row > 0).sum()), "most_in_a_row": int(per_row.max()),
+            "rows_naming_over_512": int((per_row > 512).sum()), "equal": equal, "ms": ms,
+            "bound_ms": bound_ms, "bound_by": by}
+
+
+def phase_train(device) -> dict:
+    """Phase 7b: COLMAP model out and back, the 3-NN initial scene, then
+    `Trainer.fit` at full width with checkpoints; gates on the loss, the
+    held-out PSNR, densify, capacity growth, the SH degree, the launches
+    and a checkpoint restore."""
+    import numpy as np
+    import torch
+
+    from gsattack_torch.io.checkpoint import restore_checkpoint
+    from gsattack_torch.ops.knn import mean_knn_dist2
+    from gsattack_torch.render import render
+    from gsattack_torch.train import Trainer
+    from gsattack_torch.utils.losses import psnr
+
+    exts, gts, info, init, io_s = train_init(device)
     cam_err = cameras_err(info.train_cameras, exts)
     extent = info.nerf_normalization["radius"]
     log(f"phase 7b COLMAP text model of {len(exts)} views and {len(info.points)} points written "
@@ -1849,8 +1880,6 @@ def phase_train(device) -> dict:
 
     knn_in = torch.as_tensor(info.points, device=device)
     knn_ms = cuda_ms(lambda: mean_knn_dist2(knn_in), reps=2)
-    init = scene_from_points(info.points, info.colors, max_sh_degree=3,
-                             generator=torch.Generator().manual_seed(12), device=device)
     train_idx = [i for i in range(len(exts)) if i != HELD_OUT]
     cams = [exts[i].build(device=device) for i in train_idx]
     train_gts = [gts[i] for i in train_idx]
@@ -2946,17 +2975,25 @@ def phase_caps(scene, cams, ext, main: dict, train_inputs: dict, device) -> dict
                 log=lambda i, l: tstamps.append((time.perf_counter(), l)))
     torch.cuda.synchronize()
     tl = launch_counts()
+    del trainer
+    wide = wide_sum(*trainer_slot_table(init, exts[0], device))
     tlosses = [l for _, l in tstamps]
     c = {"caps": dict(pairs_per_gaussian=pairs, rect_candidates=rect, pairs_budget=budget,
                       compact_budget=compact, tier_split=ts, heavy_budget=hb),
          "steps": len(tlosses), "first_loss": tlosses[0], "last_loss": tlosses[-1],
-         "train_it_s": iteration_rate([t for t, _ in tstamps[1:]]), "launches": tl}
+         "train_it_s": iteration_rate([t for t, _ in tstamps[1:]]), "launches": tl,
+         "sum": wide}
     summary["c"] = c
     log(f"phase 11c Trainer, backend pallas, auto_caps {c['caps']}: {len(tlosses)} steps, loss "
         f"{tlosses[0]:.5f} -> {tlosses[-1]:.5f}, {c['train_it_s']:.3f} it/s; launches {tl}")
+    log(f"  gather_sum_rows on the first step's slot table {wide['table']} (W {wide['w']}): "
+        f"{wide['named']} slots named, in {wide['rows_naming_any']} rows, at most "
+        f"{wide['most_in_a_row']} in a row, {wide['rows_naming_over_512']} rows over 512; equal "
+        f"to plain {wide['equal']}; {wide['ms']:.4f} ms (bound {wide['bound_ms']:.4f} ms by "
+        f"{wide['bound_by']})")
     if not (len(tlosses) == CAPS_TRAIN_ITERS and np.isfinite(tlosses).all()
             and tl["fwd"] >= CAPS_TRAIN_ITERS and tl["bwd"] >= CAPS_TRAIN_ITERS
-            and tl["gather_sum"] >= CAPS_TRAIN_ITERS):
+            and tl["gather_sum"] >= CAPS_TRAIN_ITERS and wide["equal"]):
         failed.append("11c")
     summary["phase_s"] = time.perf_counter() - t0
     log(f"phase 11 in {summary['phase_s']:.1f} s")
@@ -3057,8 +3094,9 @@ def main() -> int:
          "cli_launches": cli_launches["gather_sum"], "mesh_launches": mesh_launches["gather_sum"],
          "caps_launches": caps["a"]["launches"]["gather_sum"],
          **{k: shapes["gather_sum"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                  "bound_by", "library_ms", "wide_ms",
-                                                  "wide_bound_ms", "wide_table")}},
+                                                  "bound_by", "library_ms")},
+         "wide_ms": caps["c"]["sum"]["ms"], "wide_bound_ms": caps["c"]["sum"]["bound_ms"],
+         "wide_table": caps["c"]["sum"]["table"]},
         {"name": "gather_rows", "route": "cuda", "source": "gsattack_torch/csrc/gather.cu",
          "replaces": "gsattack/ops/pallas_gather.py:35", "launches": main["launches"]["gather"],
          "micro_bench_launches": gathered["micro_bench_launches"],

@@ -16,48 +16,47 @@
 // (4 W B) once, and computes one add per named float. On the main path
 // about 1.5 of a gaussian's c = 12 columns are named, so the rows, read
 // at random (100 B at a 4-B alignment at 19 channels), are half the
-// bytes; a wide table (c in the thousands, as auto_caps sizes the
-// trainer's) is almost all table. What keeps a kernel from that bound is
-// latency: the row loads depend on the table loads, so a design that
-// walks one gaussian's entries one load at a time (as a warp a gaussian
-// did) waits on a round trip per entry with little in flight; and a wide
-// table's entries are nearly all -1, so each may cost a few instructions
-// at most.
+// bytes; a wide table is mostly table. The trainer's first step under
+// auto_caps (110,000 x 2,500 on 100k splats) names 1.8 M of its 275 M
+// slots: most rows name a few pairs and 51 name over 512, up to all 2,500.
+// What keeps a kernel from that bound is latency: the row loads depend on
+// the table loads, so a design that walks one gaussian's entries one load
+// at a time (as a warp a gaussian did) waits on a round trip per entry
+// with little in flight.
 //
-// Design. A CTA of 256 threads owns `block` consecutive gaussians, whose
-// table rows are one contiguous piece of block * c entries, in chunks of
-// CHUNK = 256 * TPT entries (entry i * 256 + tid of a chunk is thread
-// tid's i-th). Where c <= 512 (gather_sum_narrow_kernel) the piece is one
-// chunk of 512 entries at most (block = 512 / c, at most MAX_BLOCK: 42
-// gaussians at c = 12); a wider table (gather_sum_wide_kernel) gives a CTA
-// about WIDE_SPAN entries, walked a 1,024-entry chunk at a time through a
-// ring of WIDE_STAGES chunks that cp.async fills ahead. For each chunk:
+// Design. One kernel body. A CTA of 256 threads owns `block` consecutive
+// gaussians, whose table rows are one contiguous piece of block * c
+// entries, and walks it in chunks of CHUNK = 256 * TPT entries (entry
+// i * 256 + tid of a chunk is thread tid's i-th). Where c <= 512 the
+// piece is one chunk of 512 entries at most (block = 512 / c, at most
+// MAX_BLOCK: 42 gaussians at c = 12); a wider table gives a CTA about
+// WIDE_SPAN entries (6 gaussians at c = 2500) in chunks of 2,048
+// (WIDE_TPT = 8 entries a thread), so that a CTA has 8 KB of table in
+// flight. For each chunk:
 //  1. Every thread loads its TPT entries, coalesced, all in flight at once.
+//     A chunk inside one row that began in an earlier chunk and names
+//     nothing stops here (one block-wide vote): most of a wide table.
 //  2. The named entries are compacted into a shared list in (gaussian, j)
 //     order: a ballot per (entry slot, warp), one warp's scan over the
 //     SLOTS counts, and each entry's rank in its ballot. The list position
 //     of the first entry of each gaussian's row follows from the same
 //     counts and ballots, so gaussian k of the chunk owns list entries
-//     [seg[k], seg[k + 1]); nothing is divided per entry. A chunk inside
-//     one gaussian's row that names nothing (one block-wide vote) stops
-//     here.
+//     [seg[k], seg[k + 1]); nothing is divided per entry.
 //  3. All threads stage the listed rows into shared memory: thread (e,
 //     col) of a (per x wb) grid copies column col of entries e, e + per,
 //     ..., by 4-byte cp.async, so every load of the CTA (about 1,550 at c
 //     = 12, W = 25) is in flight at once and no register waits on one.
-//     The wide kernel's chunks name a few rows at most; it loads them
-//     plainly, so that its waits on the ring stay its own.
 //  4. Thread (k, col) adds gaussian k's staged values in list order,
 //     starting from 0.0f, the order of gather_sum_rows_plain, and stores
 //     the (gaussians, W) block, which is contiguous, coalesced. Every
 //     output row is written, zero where the table names nothing.
 // Wide rows (W > COLS) are summed COLS columns at a time, and a chunk with
-// more named values than its staging holds is summed in passes. A
-// gaussian whose sum runs on past a pass or a chunk keeps its partial sum
-// in `out` (written and read back by the CTA that owns it, across
-// __syncthreads), so the additions stay in j order. Shared memory is
-// static (about 19 KB narrow, 24 KB wide) and registers at most 32, so an
-// SM holds eight CTAs of either.
+// more named values than VALS is summed in passes. A gaussian whose sum
+// runs on past a pass or a chunk keeps its partial sum in `out` (written
+// and read back by the CTA that owns it, across __syncthreads), so the
+// additions stay in j order. Shared memory is static (19.6 KB, and 26.1 KB
+// for wide tables) and registers at most 32 (the wide instantiation
+// spills 32 B), so an SM holds eight CTAs.
 
 #include <cuda_runtime.h>
 
@@ -69,15 +68,13 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int NARROW_TPT = 2;       // table entries a thread loads, c <= THREADS * 2
-constexpr int WIDE_TPT = 4;         // and per chunk of a wider table
+constexpr int WIDE_TPT = 8;         // and per chunk of a wider table
 constexpr int MAX_BLOCK = 256;      // gaussians a CTA owns, at most
 constexpr int WIDE_SPAN = 16384;    // table entries a CTA owns in a wider table
 constexpr int VALS = 4096;          // staged row values (16 KB)
-constexpr int WIDE_VALS = 2048;     // and in a wider table, whose rows name few
-constexpr int WIDE_STAGES = 3;      // chunks of a wider table in flight or in use
 constexpr int COLS = 64;            // columns summed per pass over the list
 constexpr int MIN_CTAS = 8;         // CTAs an SM holds: at most 32 registers
-constexpr int ERR_WIDTH = -1;       // W < 1
+constexpr int ERR_SHAPE = -1;       // W < 1 or c < 1
 
 // Shared memory of one chunk's compaction: CHUNK entries, SLOTS ballots.
 template <int TPT>
@@ -146,11 +143,10 @@ __device__ __forceinline__ void copy_async(void* to, const void* from) {
 }
 
 // Steps 3 and 4 for one chunk: `total` listed entries, gaussian k of the
-// `ng` owning [seg[k], seg[k + 1]), its output row at dst + k * w. The
-// rows are staged into `vals` (NVALS floats) by cp.async (ASYNC: all of a
-// thread's loads in flight at once, and cp.async.wait_all waits for every
-// group of the thread) or by plain loads.
-template <bool ASYNC, int NVALS>
+// `ng` owning [seg[k], seg[k + 1]), its output row at dst + k * w, the
+// first's sum so far there where `began`. The rows are staged into `vals`
+// by cp.async: all of a thread's loads in flight at once, and
+// cp.async.wait_all waits for every group of the thread.
 __device__ __forceinline__ void sum_chunk(const float* __restrict__ rows, int w, int total,
                                           int ng, bool began, const int* list, float* vals,
                                           const int* seg, float* dst) {
@@ -160,22 +156,16 @@ __device__ __forceinline__ void sum_chunk(const float* __restrict__ rows, int w,
     const int per = THREADS / wb;  // entries staged, and gaussians summed, a step
     const int row = tid / wb, col = tid - row * wb;
     const bool on = row < per;
-    const int cap = NVALS / wb;  // entries staged a pass
+    const int cap = VALS / wb;  // entries staged a pass
     const float* src = rows + cb + col;
     for (int e0 = 0;; e0 += cap) {
       const int e1 = min(total, e0 + cap);
       if (on) {
         for (int x = e0 + row; x < e1; x += per) {
-          float* to = vals + (x - e0) * wb + col;
-          const float* from = src + static_cast<int64_t>(list[x]) * w;
-          if (ASYNC) {
-            copy_async(to, from);
-          } else {
-            *to = __ldg(from);
-          }
+          copy_async(vals + (x - e0) * wb + col, src + static_cast<int64_t>(list[x]) * w);
         }
       }
-      if (ASYNC) asm volatile("cp.async.wait_all;\n" ::: "memory");
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
       __syncthreads();
       if (on) {
         for (int k = row; k < ng; k += per) {
@@ -194,89 +184,50 @@ __device__ __forceinline__ void sum_chunk(const float* __restrict__ rows, int w,
   }
 }
 
-// Tables of c <= THREADS * TPT: a CTA's rows are one chunk.
-template <int TPT>
+// A CTA's `block` gaussians: their table rows, block * c entries, a chunk
+// of THREADS * TPT entries at a time; one chunk unless WIDE (c > CHUNK),
+// which the compiler then folds to the single pass.
+template <int TPT, bool WIDE>
 __global__ void __launch_bounds__(THREADS, MIN_CTAS)
-gather_sum_narrow_kernel(const float* __restrict__ rows, const int* __restrict__ table,
-                         int64_t n, int c, int w, int block, float* out) {
-  __shared__ Chunk<TPT> sh;
-  __shared__ float vals[VALS];        // the rows' values, entry-major
-  __shared__ int seg[MAX_BLOCK + 1];  // gaussian k's entries: [seg[k], seg[k + 1])
-  const int tid = threadIdx.x;
-  const int64_t g0 = static_cast<int64_t>(blockIdx.x) * block;
-  const int nb = static_cast<int>(n - g0 < block ? n - g0 : block), span = nb * c;
-  const int* tab = table + g0 * c;
-  int cur[TPT];
-#pragma unroll
-  for (int i = 0; i < TPT; ++i) {
-    const int p = i * THREADS + tid;
-    cur[i] = p < span ? __ldg(tab + p) : -1;
-  }
-  const int total = compact<TPT>(cur, span, nb, 0, c, sh, seg);
-  __syncthreads();
-  sum_chunk<true, VALS>(rows, w, total, nb, false, sh.list, vals, seg, out + g0 * w);
-}
-
-// Wider tables: a CTA's rows, about WIDE_SPAN entries, a chunk at a time
-// through a ring of STAGES chunks that cp.async fills ahead: each thread
-// copies the entries it reads, so it waits for its own copies alone, and
-// a ring slot is refilled only after its reader has read it.
-template <int TPT, int STAGES>
-__global__ void __launch_bounds__(THREADS, MIN_CTAS)
-gather_sum_wide_kernel(const float* __restrict__ rows, const int* __restrict__ table,
+gather_sum_rows_kernel(const float* __restrict__ rows, const int* __restrict__ table,
                        int64_t n, int c, int w, int block, float* out) {
   constexpr int CHUNK = Chunk<TPT>::CHUNK;
   __shared__ Chunk<TPT> sh;
-  __shared__ int ring[STAGES][CHUNK];
-  __shared__ float vals[WIDE_VALS];
-  __shared__ int seg[CHUNK / 512 + 3];  // ng + 1, and ng <= CHUNK / c + 2 with c > 512
+  __shared__ float vals[VALS];        // the rows' values, entry-major
+  __shared__ int seg[MAX_BLOCK + 1];  // gaussian k of a chunk's: [seg[k], seg[k + 1])
   const int tid = threadIdx.x;
   const int64_t g0 = static_cast<int64_t>(blockIdx.x) * block;
   const int span = static_cast<int>(n - g0 < block ? n - g0 : block) * c;
-  const int chunks = (span + CHUNK - 1) / CHUNK;
   const int* tab = table + g0 * c;
   float* dst = out + g0 * w;
-
-  auto stage = [&](int k) {  // chunk k into its ring slot, one group
-    if (k < chunks) {
-#pragma unroll
-      for (int i = 0; i < TPT; ++i) {
-        const int q = i * THREADS + tid, p = k * CHUNK + q;
-        int* to = &ring[k % STAGES][q];
-        if (p < span) {
-          copy_async(to, tab + p);
-        } else {
-          *to = -1;
-        }
-      }
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  };
-  for (int k = 0; k < STAGES - 1; ++k) stage(k);
-  // The chunk's first entry: column `off` of the CTA's gaussian g_lo.
+  // The chunk's first entry is column `off` of the CTA's gaussian g_lo; a
+  // gaussian whose row began in an earlier chunk (`off` > 0) has its sum
+  // so far in out.
   int g_lo = 0, off = 0;
+  const int chunks = WIDE ? (span + CHUNK - 1) / CHUNK : 1;
   for (int k = 0; k < chunks; ++k) {
-    stage(k + STAGES - 1);
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 1) : "memory");
+    const int k0 = k * CHUNK, len = min(CHUNK, span - k0);
     int cur[TPT];
 #pragma unroll
-    for (int i = 0; i < TPT; ++i) cur[i] = ring[k % STAGES][i * THREADS + tid];
-    const int len = min(CHUNK, span - k * CHUNK);
-    // The rows that meet the chunk. Where the first began in an earlier
-    // chunk (`began`), its sum so far is in out, and a chunk of that row
-    // alone that names nothing changes nothing.
-    const int ng = c > CHUNK ? 1 + (off + len > c) : (off + len - 1) / c + 1;
-    const bool began = off != 0;
+    for (int i = 0; i < TPT; ++i) {
+      const int q = i * THREADS + tid;
+      cur[i] = q < len ? __ldg(tab + k0 + q) : -1;
+    }
+    const int ng = (off + len - 1) / c + 1;  // the rows that meet the chunk
+    // A chunk inside one row that began earlier and names nothing leaves
+    // that row's sum in out as it is (one block-wide vote).
     bool any = false;
 #pragma unroll
     for (int i = 0; i < TPT; ++i) any |= cur[i] >= 0;
-    if (!(began && ng == 1 && !__syncthreads_or(any))) {
+    if (off == 0 || ng > 1 || __syncthreads_or(any)) {
       const int total = compact<TPT>(cur, len, ng, off, c, sh, seg);
       __syncthreads();
-      sum_chunk<false, WIDE_VALS>(rows, w, total, ng, began, sh.list, vals, seg,
-                                  dst + static_cast<int64_t>(g_lo) * w);
+      sum_chunk(rows, w, total, ng, off != 0, sh.list, vals, seg,
+                dst + static_cast<int64_t>(g_lo) * w);
     }
-    for (off += len; off >= c; off -= c) ++g_lo;
+    off += len;
+    g_lo += off / c;
+    off %= c;
   }
 }
 
@@ -285,25 +236,23 @@ gather_sum_wide_kernel(const float* __restrict__ rows, const int* __restrict__ t
 // Plain C entry point for ctypes: rows (P, w) float32, table (n, c) int32
 // with entries in [-1, P), out (n, w) float32, all contiguous device
 // memory. Returns cudaGetLastError() after the launch (0 = launched), or
-// ERR_WIDTH. A table of no columns gives zeros (a memset). The wrapper
-// launches nothing for n = 0.
+// ERR_SHAPE. The wrapper answers n = 0 and c = 0 without a call.
 extern "C" int gs_gather_sum_rows(const float* rows, const int* table, int64_t n, int c,
                                   int w, float* out, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (w < 1) return ERR_WIDTH;
+  if (w < 1 || c < 1) return ERR_SHAPE;
   if (n <= 0) return 0;
-  if (c <= 0) return static_cast<int>(cudaMemsetAsync(out, 0, n * w * sizeof(float), s));
   constexpr int narrow = Chunk<NARROW_TPT>::CHUNK;
   const bool wide = c > narrow;
   int block = wide ? WIDE_SPAN / c : narrow / c;
   block = block < 1 ? 1 : (block > MAX_BLOCK ? MAX_BLOCK : block);
   const unsigned blocks = static_cast<unsigned>((n + block - 1) / block);
   if (wide) {
-    gather_sum_wide_kernel<WIDE_TPT, WIDE_STAGES><<<blocks, THREADS, 0, s>>>(rows, table, n, c,
-                                                                             w, block, out);
+    gather_sum_rows_kernel<WIDE_TPT, true><<<blocks, THREADS, 0, s>>>(rows, table, n, c, w, block,
+                                                                     out);
   } else {
-    gather_sum_narrow_kernel<NARROW_TPT><<<blocks, THREADS, 0, s>>>(rows, table, n, c, w, block,
-                                                                   out);
+    gather_sum_rows_kernel<NARROW_TPT, false><<<blocks, THREADS, 0, s>>>(rows, table, n, c, w,
+                                                                         block, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

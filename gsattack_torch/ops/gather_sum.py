@@ -10,19 +10,19 @@ counterpart of the reference's XLA table backward
 kernel. The order of the sum is fixed, so the result is reproducible bit
 for bit, on the card and on the CPU.
 
-The kernel (two instantiations, chosen by the table's width c) gives a CTA
-a block of consecutive gaussians, compacts the entries their table rows
-name into shared memory, stages the named rows there by cp.async with all
-of a CTA's loads in flight at once, and adds each gaussian's rows in j
-order, as `gather_sum_rows_plain` does; a table wider than 512 columns is
-walked in chunks through a ring that cp.async fills ahead
-(`csrc/gather_sum.cu` has the design and what bounds it).
+The kernel gives a CTA a block of consecutive gaussians and walks their
+table rows in chunks: it compacts the entries a chunk names into shared
+memory, stages the named rows there by cp.async with all of a CTA's loads
+in flight at once, and adds each gaussian's rows in j order, as
+`gather_sum_rows_plain` does (`csrc/gather_sum.cu` has the design and what
+bounds it).
 
 `gather_sum_rows` launches the kernel for CUDA tensors and sends CPU
 tensors to `gather_sum_rows_plain`, which is also the kernel's oracle. A
 build or launch failure raises; nothing on a CUDA tensor takes the plain
 route. `GATHER_SUM_LAUNCHES` is raised by one exactly where the kernel is
-launched.
+launched; a table with no entries (n = 0 or c = 0) is answered with zeros
+and launches nothing.
 """
 
 from __future__ import annotations
@@ -79,14 +79,14 @@ def _validate(rows: torch.Tensor, table: torch.Tensor) -> None:
 
 
 def _launch(rows: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel on validated CUDA tensors: (n, W) float32. An empty
-    table (n = 0) is answered without a launch."""
+    """Launch the kernel on validated CUDA tensors: (n, W) float32. A table
+    with no entries (n = 0 or c = 0) is answered with zeros, no launch."""
     global GATHER_SUM_LAUNCHES
     rows, table = rows.contiguous(), table.contiguous()
     (n, c), w = table.shape, rows.shape[1]
+    if n == 0 or c == 0:
+        return rows.new_zeros((n, w))
     out = torch.empty((n, w), dtype=torch.float32, device=rows.device)
-    if n == 0:
-        return out
     with torch.cuda.device(rows.device):
         rc = _load().gs_gather_sum_rows(
             rows.data_ptr(), table.data_ptr(), n, c, w, out.data_ptr(),

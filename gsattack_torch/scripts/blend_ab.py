@@ -18,10 +18,11 @@ these shapes, and on phase 2b's batch-edge and cap tiles), and times each
 as the mean over `--reps` launches between CUDA events, `--rounds` times,
 and the whole backward as autograd runs it (`blend_bwd` and, where ROOT's
 backward writes per-pair rows, `gather_sum_rows`). Where it does, the sum
-is also held to its plain version (`torch.equal`, on phase 3's table and
-`chip_smoke.gather_sum_edges`) and timed alone, on phase 3's slot table
-and on `chip_smoke.wide_table` of it. To compare two commits,
-give them in turns, parent, change, change, parent. The summary gives each
+is also held to its plain version (`torch.equal`, on phase 3's table, on
+`chip_smoke.gather_sum_edges` and on the wide table) and timed alone, on
+phase 3's slot table and on the wide one that phase 11c's trainer bins at
+its `auto_caps` (`chip_smoke.trainer_slot_table`, 110,000 x 2500). To
+compare two commits, give them in turns, parent, change, change, parent. The summary gives each
 ROOT's median over all its rounds; `--out` writes every run as JSON. Exits
 1 if any ROOT fails its build or a gate.
 """
@@ -45,17 +46,16 @@ REGS_PER_SM, SMEM_PER_SM, THREADS = 65536, 233472, 256
 
 
 def ptxas_report(text: str) -> dict:
-    """Per blend kernel instantiation (`fwd<19>`, ...) and per kernel of
-    the per-gaussian sum (`gather_sum_narrow<2>`, `gather_sum_wide<4>`, or
-    the warp-a-gaussian `gather_sum_rows<32>` of older checkouts):
-    registers, static shared memory,
+    """Per blend kernel instantiation (`fwd<19>`, ...) and per
+    instantiation of the per-gaussian sum (`gather_sum_rows<2>`, ...; an
+    older checkout's names parse alike): registers, static shared memory,
     stack frame and spill bytes, and the CTAs of 256 threads an SM can
     hold by registers (allocated per warp in units of 256) and by shared
     memory (with the 1 KB the runtime reserves per CTA)."""
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '.*?(?:blend_(fwd|bwd)|"
-                      r"(gather_sum_(?:rows|narrow|wide)))_kernel(?:ILi(\d+)E)?", line)
+                      r"(gather_sum_[a-z]+))_kernel(?:ILi(\d+)E)?", line)
         if m:
             kernel = m.group(1) or m.group(2)
             name = f"{kernel}<{m.group(3)}>" if m.group(3) else kernel
@@ -131,10 +131,12 @@ def worker(root: str, reps: int, rounds: int) -> dict:
         if rows is not None:
             from gsattack_torch.ops.gather_sum import gather_sum_rows, gather_sum_rows_plain
 
-            wide = smoke.wide_table(table)
-            summed = gather_sum_rows(rows, table)
-            if not (torch.equal(summed, gather_sum_rows_plain(rows, table))
-                    and torch.equal(gather_sum_rows(rows, wide), summed[:wide.shape[0]])):
+            exts, _, _, init, _ = smoke.train_init(device)
+            wide, wide_rows = smoke.trainer_slot_table(init, exts[0], device)
+            del init
+            if not (torch.equal(gather_sum_rows(rows, table), gather_sum_rows_plain(rows, table))
+                    and torch.equal(gather_sum_rows(wide_rows, wide),
+                                    gather_sum_rows_plain(wide_rows, wide))):
                 print(f"{root}: gather_sum_rows differs from its plain version", file=sys.stderr)
                 ok = False
         for _ in range(rounds):
@@ -148,13 +150,13 @@ def worker(root: str, reps: int, rounds: int) -> dict:
                 reps))
             if rows is not None:
                 sum_ms.append(smoke.cuda_ms(lambda: gather_sum_rows(rows, table), reps))
-                wide_ms.append(smoke.cuda_ms(lambda: gather_sum_rows(rows, wide), reps))
+                wide_ms.append(smoke.cuda_ms(lambda: gather_sum_rows(wide_rows, wide), reps))
     return {
         "root": root, "ok": ok, "card": smoke.nvidia_smi(), "build_s": build_s,
         "ptxas": ptxas_report(buf.getvalue()), "n_pairs": int(bins.gauss_idx.shape[0]),
         "fwd_err": cmp["fwd_err"], "bwd_rel": cmp["bwd_rel"],
         "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "grad_ms": grad_ms, "sum_ms": sum_ms,
-        "wide_ms": wide_ms, "wide_table": list(smoke.WIDE_SUM_TABLE),
+        "wide_ms": wide_ms, "wide_table": list(wide.shape) if rows is not None else None,
     }
 
 

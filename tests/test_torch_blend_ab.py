@@ -51,14 +51,15 @@ def test_main_needs_a_root():
 
 
 def test_ptxas_report_reads_the_sum_kernels():
-    # The redesigned sum (two templates) and the warp-a-gaussian kernel it
-    # replaced (a template on the group width), names shortened.
+    # The redesigned sum (one template, two instantiations) and the
+    # warp-a-gaussian kernel it replaced (a template on the group width),
+    # names shortened.
     text = ("ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__b5d7c3dc_13_gather_sum_cu_"
-            "4b20f83624gather_sum_narrow_kernelILi2EEEvPKfPKiliiiPf' for 'sm_90a'\n"
+            "4b20f83622gather_sum_rows_kernelILi2EEEvPKfPKiliiiPf' for 'sm_90a'\n"
             "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
             "ptxas info    : Used 32 registers, used 1 barriers, 19592 bytes smem\n"
             "ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__b5d7c3dc_13_gather_sum_cu_"
-            "4b20f83622gather_sum_wide_kernelILi4EEEvPKfPKiliiiPf' for 'sm_90a'\n"
+            "4b20f83622gather_sum_rows_kernelILi4EEEvPKfPKiliiiPf' for 'sm_90a'\n"
             "    8 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads\n"
             "ptxas info    : Used 40 registers, used 1 barriers, 20796 bytes smem\n"
             "ptxas info    : Compiling entry function '_ZN46_GLOBAL__N__b5d7c3dc_13_gather_sum_cu_"
@@ -68,12 +69,11 @@ def test_ptxas_report_reads_the_sum_kernels():
     assert blend_ab.ptxas_report(text) == {
         # 32 registers: 8 CTAs by registers and by threads; 11 by shared
         # memory (233,472 B over 20,616 B a CTA).
-        "gather_sum_narrow<2>": {"stack_bytes": 0, "spill_bytes": 0, "registers": 32,
-                                 "smem_bytes": 19592, "ctas_per_sm": 8},
+        "gather_sum_rows<2>": {"stack_bytes": 0, "spill_bytes": 0, "registers": 32,
+                               "smem_bytes": 19592, "ctas_per_sm": 8},
         # 40 registers: 1,280 a warp, 51 warps, 6 CTAs.
-        "gather_sum_wide<4>": {"stack_bytes": 8, "spill_bytes": 24, "registers": 40,
+        "gather_sum_rows<4>": {"stack_bytes": 8, "spill_bytes": 24, "registers": 40,
                                "smem_bytes": 20796, "ctas_per_sm": 6},
-        # No shared memory: 8 CTAs by registers and by threads.
         "gather_sum_rows<32>": {"stack_bytes": 0, "spill_bytes": 0, "registers": 24,
                                 "smem_bytes": 0, "ctas_per_sm": 8},
     }
