@@ -1,0 +1,8 @@
+"""The device's idle share of the traced training window: 1 - the union of its
+operations' intervals over the window's length, in %."""
+
+
+def read(ctx):
+    if ctx["kind"] != "train" or ctx["trace"].busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - ctx["trace"].busy_s / ctx["trace"].window_s)
