@@ -696,9 +696,9 @@ def gather_sum_edges(device) -> dict:
         }
         for name, table in cases.items():
             table = table.to(torch.int32).to(device)
-            before = gather_sum.GATHER_SUM_LAUNCHES
+            before = launch_counts()["gather_sum"]
             got = gather_sum.gather_sum_rows(rows, table)
-            launched = gather_sum.GATHER_SUM_LAUNCHES - before
+            launched = launch_counts()["gather_sum"] - before
             equal = torch.equal(got, gather_sum.gather_sum_rows_plain(rows, table))
             out[f"W={w} {name}"] = equal and launched == (0 if name == "N=0" else 1)
     torch.cuda.synchronize()
@@ -880,17 +880,17 @@ def phase_gather(device) -> dict:
     log("phase 5  row gather: edge cases against the plain version (torch.equal)")
     failed = []
     for name, (src, idx) in cases.items():
-        before = gather.GATHER_LAUNCHES
+        before = launch_counts()["gather"]
         out = gather.gather_rows(src, idx)
         torch.cuda.synchronize()
-        launched = gather.GATHER_LAUNCHES - before
+        launched = launch_counts()["gather"] - before
         equal = torch.equal(out, gather.gather_rows_plain(src, idx))
         ok = equal and launched == (1 if idx.numel() else 0) and out.shape == (idx.numel(),
                                                                               src.shape[1])
         log(f"  {name:52s} {tuple(out.shape)} equal {equal}, launches {launched}")
         if not ok:
             failed.append(name)
-    before = gather.GATHER_LAUNCHES
+    before = launch_counts()["gather"]
     try:  # M * W = 2^31 floats, from a view of one index: refused before any allocation
         gather.gather_rows(bench.table(1, 16),
                            torch.zeros(1, dtype=torch.int32, device=device).expand(2**27))
@@ -898,8 +898,8 @@ def phase_gather(device) -> dict:
     except ValueError:
         refused = True
     log(f"  {'M * W = 2^31 (past the 32-bit piece index)':52s} refused {refused}, launches "
-        f"{gather.GATHER_LAUNCHES - before}")
-    if not refused or gather.GATHER_LAUNCHES != before:
+        f"{launch_counts()['gather'] - before}")
+    if not refused or launch_counts()["gather"] != before:
         failed.append("M * W = 2^31")
     if failed:
         raise AssertionError(f"phase 5 edge cases failed: {failed}")
@@ -935,9 +935,9 @@ def phase_gather(device) -> dict:
 
     log("  micro-bench: python -m gsattack_torch.scripts.micro_gather main "
         "--threads 256 --in-flight 4 --iters 4")
-    gather.GATHER_LAUNCHES = 0
+    before = launch_counts()["gather"]
     rc = micro_gather.main(["main", "--threads", "256", "--in-flight", "4", "--iters", "4"])
-    launches = gather.GATHER_LAUNCHES
+    launches = launch_counts()["gather"] - before
     log(f"  micro-bench returned {rc}; gather launches {launches}")
     if rc != 0 or launches == 0:
         raise AssertionError(f"micro-bench: rc {rc}, gather launches {launches}")
@@ -1065,11 +1065,19 @@ def main_attack_config(out_dir: str):
     )
 
 
-def launch_counts() -> dict:
-    from gsattack_torch.ops import blend, gather, gather_sum
+LAUNCH_COUNTERS = {"fwd": "blend_fwd_launches", "bwd": "blend_bwd_launches",
+                   "gather_sum": "gather_sum_launches", "gather": "gather_launches"}
+_launch_base: dict = {}
 
-    return {"fwd": blend.FWD_LAUNCHES, "bwd": blend.BWD_LAUNCHES,
-            "gather_sum": gather_sum.GATHER_SUM_LAUNCHES, "gather": gather.GATHER_LAUNCHES}
+
+def launch_counts() -> dict:
+    """The kernel launches since `zero_launch_counts`, from the program's
+    counters (`gsattack_torch.utils.profiling.counters`)."""
+    from gsattack_torch.utils.profiling import counters
+
+    now = counters()
+    return {k: now.get(name, 0) - _launch_base.get(name, 0)
+            for k, name in LAUNCH_COUNTERS.items()}
 
 
 def fewest_blend_launches(n: dict) -> int:
@@ -1079,10 +1087,11 @@ def fewest_blend_launches(n: dict) -> int:
 
 
 def zero_launch_counts() -> None:
-    from gsattack_torch.ops import blend, gather, gather_sum
+    """Count `launch_counts` from here."""
+    from gsattack_torch.utils.profiling import counters
 
-    blend.FWD_LAUNCHES = blend.BWD_LAUNCHES = gather.GATHER_LAUNCHES = 0
-    gather_sum.GATHER_SUM_LAUNCHES = 0
+    _launch_base.clear()
+    _launch_base.update(counters())
 
 
 def iteration_rate(stamps) -> float:

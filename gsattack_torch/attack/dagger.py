@@ -13,6 +13,12 @@ the plain version on the CPU. With a (views, splats) `DeviceMesh`
 (`parallel/`), every rank calls `run_dagger` with the whole scene; the
 attack then runs on this rank's splat block and view block, and the
 result is gathered whole on every rank.
+
+Spans (`utils/profiling.py`): each PGD iteration is `pgd/iter`, with
+`detector/loss`, `pgd/backward`, `pgd/step`, `pgd/loss_read` and `pgd/eval`
+(the eval render, its copy to the host, and `detector/predict` for each
+view) inside it, beside the render's own; the attack's set-up has
+`dagger/caps` (the cap probe) and `dagger/benign` (the benign pass).
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from ..parallel.shard import (
 )
 from ..parallel.shardings import gather_scene, shard_points, shard_scene
 from ..render import render
+from ..utils.profiling import annotate
 from .pgd import pgd_attack_step
 from .silhouette import silhouette_bbox
 
@@ -217,7 +224,7 @@ def run_dagger(
         probe_scenes = [scene] + (
             [scene.concat(frozen_scene)] if frozen_scene is not None else []
         )
-        with torch.no_grad():
+        with torch.no_grad(), annotate("dagger/caps"):
             views_probed = [(project(sc, c), c.width, c.height)
                             for sc in probe_scenes for c in built]
             caps = resolve_caps(views_probed, *(getattr(cfg, k) for k in CAP_FIELDS), log=log)
@@ -280,7 +287,7 @@ def run_dagger(
 
     # ---- benign pass: silhouette GT boxes on a black background
     gt_bboxes, n_trunc = [], 0
-    with torch.no_grad():
+    with torch.no_grad(), annotate("dagger/benign"):
         for c in built:
             if mesh is None:
                 out = render(
@@ -310,19 +317,61 @@ def run_dagger(
     def attack_step(params, cams, bboxes):
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         sc = base.with_params(leaves)
-        loss = detector.loss(views_render(sc, cams, bg, loss_caps), target_idx, bboxes)
-        grads = dict(zip(leaves, torch.autograd.grad(
-            loss, list(leaves.values()), allow_unused=True)))
+        images = views_render(sc, cams, bg, loss_caps)
+        with annotate("detector/loss"):
+            loss = detector.loss(images, target_idx, bboxes)
+        with annotate("pgd/backward"):
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()), allow_unused=True)))
         grads = {
             k: torch.zeros_like(leaves[k]) if g is None else g for k, g in grads.items()
         }
-        with torch.no_grad():
+        with torch.no_grad(), annotate("pgd/step"):
             sc = pgd_attack_step(
                 base.with_params(params), grads, originals, cfg.alpha,
                 cfg.epsilon, cfg.attributes, cfg.norm, cfg.is_targeted, mask,
                 norm_group=norm_group,
             )
         return sc.params(), loss.detach()
+
+    def evaluate(params, cams, cur, cur_boxes, it):
+        """The success check of the views `cur`: the eval render, brought
+        to the host, and the detector's verdict on each view (rank 0's on
+        every rank, so that every rank leaves the loop at the same
+        iteration)."""
+        with torch.no_grad():
+            if frozen_scene is None:
+                eval_imgs = views_render(base.with_params(params), cams, bg, fwd_caps)
+            else:
+                eval_imgs = render_views(
+                    whole(params).concat(frozen_scene), cams, bg, cfg.pairs_per_gaussian,
+                    cfg.max_chunks, cfg.chunk, cfg.rect_candidates, mesh=mesh,
+                    band_tiles=band_tiles, **fwd_caps,
+                )
+        eval_imgs = eval_imgs.cpu().numpy()
+        successes = []
+        for j in range(len(cur)):
+            path = (
+                os.path.join(cfg.preds_dir, f"render_it{it}_c{j}.png")
+                if cfg.preds_dir and lead
+                else None
+            )
+            with annotate("detector/predict"):
+                ok = detector.predict_and_save(
+                    image=eval_imgs[j],
+                    path=path,
+                    target=cfg.target,
+                    untarget=cfg.untarget,
+                    is_targeted=cfg.is_targeted,
+                    threshold=cfg.attack_conf_thresh,
+                    gt_bbox=cur_boxes[j],
+                )
+            successes.append(bool(ok))
+        if mesh is not None:
+            box = [successes]
+            dist.broadcast_object_list(box, src=0)
+            successes = box[0]
+        return successes
 
     params = {k: v.detach().clone() for k, v in base.params().items()}
     pending = list(range(len(built)))
@@ -375,58 +424,29 @@ def run_dagger(
             pending_boxes = pending_boxes[batch_size:]
             continue
 
-        cur = pending[:batch_size] if cfg.batch_mode else pending[:1]
-        cur_boxes = np.stack(pending_boxes[: len(cur)])
-        cams = stack_cameras([built[i] for i in cur])
+        with annotate("pgd/iter"):
+            cur = pending[:batch_size] if cfg.batch_mode else pending[:1]
+            cur_boxes = np.stack(pending_boxes[: len(cur)])
+            cams = stack_cameras([built[i] for i in cur])
 
-        params, loss = attack_step(params, cams, cur_boxes)
-        losses.append(float(loss))
-        log(f"Iteration: {it}, Loss: {losses[-1]}")
+            params, loss = attack_step(params, cams, cur_boxes)
+            with annotate("pgd/loss_read"):
+                losses.append(float(loss))
+            log(f"Iteration: {it}, Loss: {losses[-1]}")
 
-        if (it % cfg.eval_every) == 0:
-            with torch.no_grad():
-                if frozen_scene is None:
-                    eval_imgs = views_render(base.with_params(params), cams, bg, fwd_caps)
-                else:
-                    eval_imgs = render_views(
-                        whole(params).concat(frozen_scene), cams, bg, cfg.pairs_per_gaussian,
-                        cfg.max_chunks, cfg.chunk, cfg.rect_candidates, mesh=mesh,
-                        band_tiles=band_tiles, **fwd_caps,
-                    )
-            eval_imgs = eval_imgs.cpu().numpy()
-            successes = []
-            for j, vi in enumerate(cur):
-                path = (
-                    os.path.join(cfg.preds_dir, f"render_it{it}_c{j}.png")
-                    if cfg.preds_dir and lead
-                    else None
-                )
-                ok = detector.predict_and_save(
-                    image=eval_imgs[j],
-                    path=path,
-                    target=cfg.target,
-                    untarget=cfg.untarget,
-                    is_targeted=cfg.is_targeted,
-                    threshold=cfg.attack_conf_thresh,
-                    gt_bbox=cur_boxes[j],
-                )
-                successes.append(bool(ok))
-            if mesh is not None:
-                # Rank 0's decisions, so that every rank leaves the loop at
-                # the same iteration.
-                box = [successes]
-                dist.broadcast_object_list(box, src=0)
-                successes = box[0]
-            n_ok = sum(successes)
-            log(f"Successes: {n_ok}/{len(cur)}")
-            if n_ok >= len(cur) - (1 if cfg.batch_mode and len(cur) > 1 else 0):
-                per_view_success.extend(successes)
-                pending = pending[len(cur) :]
-                pending_boxes = pending_boxes[len(cur) :]
-                if not pending:
-                    all_done = True
-                    log("All camera viewpoints attacked successfully")
-                    break
+            if (it % cfg.eval_every) == 0:
+                with annotate("pgd/eval"):
+                    successes = evaluate(params, cams, cur, cur_boxes, it)
+                n_ok = sum(successes)
+                log(f"Successes: {n_ok}/{len(cur)}")
+                if n_ok >= len(cur) - (1 if cfg.batch_mode and len(cur) > 1 else 0):
+                    per_view_success.extend(successes)
+                    pending = pending[len(cur) :]
+                    pending_boxes = pending_boxes[len(cur) :]
+                    if not pending:
+                        all_done = True
+                        log("All camera viewpoints attacked successfully")
+                        break
 
         # Checkpoint after the success evaluation pruned `pending`, so a
         # resume does not replay views already recorded as successful.

@@ -16,8 +16,10 @@ The library is built from the checkout's `csrc/*.cu` on first use and
 loaded by `ops/_cuda.py`, so importing this module needs neither CUDA nor a
 compiler.
 
-`FWD_LAUNCHES` and `BWD_LAUNCHES` count the kernel launches; each is raised
-by one exactly where its kernel is launched.
+The counters `blend_fwd_launches` and `blend_bwd_launches`
+(`utils/profiling.py`) count the kernel launches; each is raised by one
+exactly where its kernel is launched. The backward runs in the span
+`blend/backward`, its per-gaussian sum in `blend/gather_sum` inside it.
 """
 
 from __future__ import annotations
@@ -26,11 +28,9 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import annotate, count
 from . import _cuda
 from .gather_sum import gather_sum_rows
-
-FWD_LAUNCHES = 0
-BWD_LAUNCHES = 0
 
 CHANNELS = (3, 19)  # channel counts the kernels are instantiated for
 
@@ -86,7 +86,6 @@ def forward_kernel(gauss_idx, tile_start, tile_end, mean2d, conic, opacity,
     """Launch the forward kernel on contiguous, validated inputs: image
     (V, H_pad, W_pad, CH), final T (V, H_pad, W_pad), and per pixel the
     count of pairs up to its last contributor (int32)."""
-    global FWD_LAUNCHES
     v, _, n_ch = colors.shape
     dev = colors.device
     shape = (v, tiles_y * 16, tiles_x * 16)
@@ -100,7 +99,7 @@ def forward_kernel(gauss_idx, tile_start, tile_end, mean2d, conic, opacity,
         img.data_ptr(), T.data_ptr(), last.data_ptr(), _cuda.stream(dev),
     )
     _check(rc, "blend forward")
-    FWD_LAUNCHES += 1
+    count("blend_fwd_launches")
     return img, T, last
 
 
@@ -111,7 +110,6 @@ def backward_kernel(gauss_idx, tile_start, tile_end, mean2d, conic, opacity,
     mean2d 2, conic 3, opacity 1, then the colours (zero for a pair that no
     pixel composites; rows of pairs outside every tile's range are not
     written)."""
-    global BWD_LAUNCHES
     v, _, n_ch = colors.shape
     if g_img.data_ptr() % 16:  # the kernel reads g_img's tile rows in 16-byte pieces
         g_img = g_img.clone()
@@ -125,7 +123,7 @@ def backward_kernel(gauss_idx, tile_start, tile_end, mean2d, conic, opacity,
         d_pair.data_ptr(), _cuda.stream(colors.device),
     )
     _check(rc, "blend backward")
-    BWD_LAUNCHES += 1
+    count("blend_bwd_launches")
     return d_pair
 
 
@@ -150,12 +148,13 @@ class _BlendFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_img, g_T, _g_last):
-        *inputs, slot_table, T, last = ctx.saved_tensors
-        v, n, n_ch = inputs[-1].shape
-        g_img = (T.new_zeros(T.shape + (n_ch,)) if g_img is None else g_img.contiguous())
-        g_T = T.new_zeros(T.shape) if g_T is None else g_T.contiguous()
-        d_pair = backward_kernel(*inputs, *ctx.tiles, T, last, g_img, g_T)
-        grads = split_rows(gather_sum_rows(d_pair, slot_table), v, n)
+        with annotate("blend/backward"):
+            *inputs, slot_table, T, last = ctx.saved_tensors
+            v, n, n_ch = inputs[-1].shape
+            g_img = (T.new_zeros(T.shape + (n_ch,)) if g_img is None else g_img.contiguous())
+            g_T = T.new_zeros(T.shape) if g_T is None else g_T.contiguous()
+            d_pair = backward_kernel(*inputs, *ctx.tiles, T, last, g_img, g_T)
+            grads = split_rows(gather_sum_rows(d_pair, slot_table), v, n)
         return (*grads, None, None, None, None, None, None, None)
 
 

@@ -12,7 +12,8 @@ call has none.
 `gather_rows` launches the kernel for CUDA tensors and sends CPU tensors to
 `gather_rows_plain`, which is also the kernel's oracle. A build or launch
 failure raises; nothing on a CUDA tensor takes the plain route.
-`GATHER_LAUNCHES` is raised by one exactly where the kernel is launched.
+The counter `gather_launches` (`utils/profiling.py`) is raised by one
+exactly where the kernel is launched.
 """
 
 from __future__ import annotations
@@ -21,9 +22,8 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import count
 from . import _cuda
-
-GATHER_LAUNCHES = 0
 
 THREADS = 256  # threads per CTA, a multiple of 32 in [32, 1024]
 IN_FLIGHT = 4  # loads each thread keeps in flight: 1, 2, 4 or 8
@@ -71,7 +71,6 @@ def _validate(src: torch.Tensor, idx: torch.Tensor) -> None:
 def _launch(src: torch.Tensor, idx: torch.Tensor, threads: int, in_flight: int) -> torch.Tensor:
     """Launch the kernel on validated CUDA tensors: (M, W) float32. An
     empty output (M or W of 0) is returned without a launch."""
-    global GATHER_LAUNCHES
     idx = idx.contiguous()
     (s, w), m = src.shape, idx.shape[0]
     out = torch.empty((m, w), dtype=torch.float32, device=src.device)
@@ -91,7 +90,7 @@ def _launch(src: torch.Tensor, idx: torch.Tensor, threads: int, in_flight: int) 
         raise ValueError(f"gather_rows: {m} rows requested from an empty table")
     if rc != 0:
         raise RuntimeError(f"gather_rows: CUDA error {rc} at launch")
-    GATHER_LAUNCHES += 1
+    count("gather_launches")
     return out
 
 

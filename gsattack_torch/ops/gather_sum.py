@@ -20,9 +20,10 @@ bounds it).
 `gather_sum_rows` launches the kernel for CUDA tensors and sends CPU
 tensors to `gather_sum_rows_plain`, which is also the kernel's oracle. A
 build or launch failure raises; nothing on a CUDA tensor takes the plain
-route. `GATHER_SUM_LAUNCHES` is raised by one exactly where the kernel is
-launched; a table with no entries (n = 0 or c = 0) is answered with zeros
-and launches nothing.
+route. The counter `gather_sum_launches` (`utils/profiling.py`) is raised
+by one exactly where the kernel is launched; a table with no entries (n = 0
+or c = 0) is answered with zeros and launches nothing. Either route runs in
+the span `blend/gather_sum`.
 """
 
 from __future__ import annotations
@@ -31,9 +32,8 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import annotate_fn, count
 from . import _cuda
-
-GATHER_SUM_LAUNCHES = 0
 
 _lib = None
 
@@ -81,7 +81,6 @@ def _validate(rows: torch.Tensor, table: torch.Tensor) -> None:
 def _launch(rows: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Launch the kernel on validated CUDA tensors: (n, W) float32. A table
     with no entries (n = 0 or c = 0) is answered with zeros, no launch."""
-    global GATHER_SUM_LAUNCHES
     rows, table = rows.contiguous(), table.contiguous()
     (n, c), w = table.shape, rows.shape[1]
     if n == 0 or c == 0:
@@ -94,10 +93,11 @@ def _launch(rows: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         )
     if rc != 0:
         raise RuntimeError(f"gather_sum_rows: CUDA error {rc} at launch")
-    GATHER_SUM_LAUNCHES += 1
+    count("gather_sum_launches")
     return out
 
 
+@annotate_fn("blend/gather_sum")
 def gather_sum_rows(rows: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Sum of `rows` (P, W) float32 over each row of `table` (n, c) int32,
     entries in [-1, P) (trusted; -1 adds nothing): the kernel on a CUDA

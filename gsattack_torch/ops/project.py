@@ -10,6 +10,12 @@ of the Inria rasterizer's preprocess:
 
 `torch.where` leaks NaN gradients from the branch it does not take exactly
 as `jnp.where` does, so the double-where guards of the reference are kept.
+
+`project` runs in the span `render/project` (`utils/profiling.py`). Its
+backward is plain autograd, run by the autograd engine (on a card, on the
+engine's own thread): a trace's reader puts those nodes down to
+`render/project` by the sequence numbers the profiler records on each
+forward op and on its backward node.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 from ..core import sh as shlib
 from ..core.camera import Camera
 from ..core.scene import GaussianScene
+from ..utils.profiling import annotate_fn
 
 
 def _affine3(xyz: torch.Tensor, rot: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
@@ -114,6 +121,7 @@ def compute_cov2d(
     )
 
 
+@annotate_fn("render/project")
 def project(
     scene: GaussianScene,
     camera: Camera,

@@ -47,6 +47,10 @@ bins or the slot table, and every pair it drops is counted.
 The last two are counted in `num_truncated_pairs`, with the tiles' pairs
 past the per-tile cap. The probes `auto_*` size every cap from a view's
 binned pair counts, slab by slab, as the reference's do.
+
+Binning runs in the span `render/bin` and the blend in `render/blend`
+(`utils/profiling.py`); `bin_views` adds its sorted pairs to the counter
+`pairs_binned`.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.profiling import annotate_fn, count
 from . import blend as blend_cuda
 from .gather_sum import gather_sum_rows
 from .project import ProjectedGaussians
@@ -170,6 +175,7 @@ def _candidate_cells(mean2d, radius, conic, opacity, tiles_x, tiles_y, c_rect):
 
 
 @torch.no_grad()
+@annotate_fn("render/bin")
 def bin_gaussians(
     mean2d: torch.Tensor,
     depth: torch.Tensor,
@@ -673,6 +679,7 @@ def blend_tiles_plain(
     return img, Tm
 
 
+@annotate_fn("render/blend")
 def blend_tiles(
     gauss_idx, tile_start, tile_end, mean2d, conic, opacity, colors,
     tiles_x: int, tiles_y: int, chunk: int, max_chunks: int, slot_table=None,
@@ -690,6 +697,7 @@ def blend_tiles(
     )
 
 
+@annotate_fn("render/bin")
 def bin_views(
     proj: ProjectedGaussians,
     width: int,
@@ -725,6 +733,7 @@ def bin_views(
         culled.append(b.num_culled_pairs)
         dropped.append(b.num_dropped_pairs)
         offset += b.gauss_idx.shape[0]
+    count("pairs_binned", offset)
     return TileBins(
         torch.cat(idx).to(torch.int32),
         torch.stack(starts),

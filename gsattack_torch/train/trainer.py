@@ -8,6 +8,12 @@ it with respect to every parameter and to a zero screen-space mean offset
 with the reference's per-group learning rates. Densify/prune, opacity
 reset and the SH degree schedule run on the host between steps.
 
+Spans (`utils/profiling.py`): a step is `train/step`, with `train/loss`,
+`train/backward`, `train/adam`, `train/stats` and `train/loss_read` (the
+loss brought to the host) inside it, beside the render's own; the
+schedules are `train/sh`, `train/densify` and `train/reset`, each opened
+only on the steps where it acts.
+
 The blend runs where the scene's tensors are: the CUDA kernels on a card,
 the plain version on the CPU. Hyperparameter defaults are the reference's
 `OptimizationParams` and `configs/config.yaml`.
@@ -42,6 +48,7 @@ from ..parallel.shard import render_sharded
 from ..parallel.shardings import gather_scene, pad_to_multiple, shard_points, shard_scene
 from ..render import render
 from ..utils.losses import dssim_l1_loss, expon_lr_schedule
+from ..utils.profiling import annotate, annotate_fn
 from .densify import (
     DensifyStats,
     add_densification_stats,
@@ -346,7 +353,19 @@ class Trainer:
                 rect_candidates=cfg.rect_candidates, mean2d_offset=offset, **self._caps(),
             )
             out = {**out, "render": out["render"][0], "radii": out["radii"][0]}
-        loss = dssim_l1_loss(out["render"], gt, cfg.lambda_dssim)
+        with annotate("train/loss"):
+            loss = self._loss(out["render"], gt, sc, reg3d_idx)
+        with annotate("train/backward"):
+            got = torch.autograd.grad(loss, [*leaves.values(), offset], allow_unused=True)
+        grads = {k: torch.zeros_like(leaves[k]) if g is None else g for k, g in zip(leaves, got)}
+        return loss.detach(), grads, got[-1], out
+
+    def _loss(self, image: torch.Tensor, gt: torch.Tensor, sc: GaussianScene,
+              reg3d_idx: Optional[torch.Tensor]) -> torch.Tensor:
+        """L1 + D-SSIM of the render, plus the grouping regulariser on its
+        steps."""
+        cfg, st = self.cfg, self.state
+        loss = dssim_l1_loss(image, gt, cfg.lambda_dssim)
         if cfg.use_reg3d and self.classifier is not None and st.step % cfg.reg3d_interval == 0:
             gen = None
             if reg3d_idx is None:
@@ -364,27 +383,29 @@ class Trainer:
                 sample_size=cfg.reg3d_sample_size, max_points=cfg.reg3d_max_points,
                 lambda_val=cfg.reg3d_lambda_val, idx=reg3d_idx,
             )
-        got = torch.autograd.grad(loss, [*leaves.values(), offset], allow_unused=True)
-        grads = {k: torch.zeros_like(leaves[k]) if g is None else g for k, g in zip(leaves, got)}
-        return loss.detach(), grads, got[-1], out
+        return loss
 
+    @annotate_fn("train/step")
     def train_step(self, camera: Camera, gt: torch.Tensor,
                    reg3d_idx: Optional[torch.Tensor] = None) -> float:
         """One step: gradients, Adam at the learning rates of the current
         step, the densification stats. Returns the loss."""
         loss, grads, mean2d_grad, out = self.loss_and_grads(camera, gt, reg3d_idx)
         st = self.state
-        params, mu, nu, count = adam_update(
-            st.scene.params(), grads, st.mu, st.nu, st.count, self.lr_tree(st.step)
-        )
+        with annotate("train/adam"):
+            params, mu, nu, count = adam_update(
+                st.scene.params(), grads, st.mu, st.nu, st.count, self.lr_tree(st.step)
+            )
         self.max_truncated_pairs = torch.maximum(self.max_truncated_pairs,
                                                  out["num_truncated_pairs"])
+        with annotate("train/stats"):
+            stats = add_densification_stats(st.stats, mean2d_grad, out["radii"])
         self.state = TrainState(
             scene=st.scene.with_params(params), mu=mu, nu=nu, count=count,
-            stats=add_densification_stats(st.stats, mean2d_grad, out["radii"]),
-            step=st.step + 1,
+            stats=stats, step=st.step + 1,
         )
-        return float(loss)
+        with annotate("train/loss_read"):
+            return float(loss)
 
     # ---- host schedules ----------------------------------------------------
 
@@ -400,34 +421,38 @@ class Trainer:
             and iteration % cfg.densification_interval == 0
         ):
             return
-        st = self.full_state()
-        scene, stats, dropped, moments = densify_and_prune(
-            st.scene, st.stats, generator, moments=(st.mu, st.nu),
-            max_grad=cfg.densify_grad_threshold, min_opacity=cfg.min_opacity,
-            extent=self.cameras_extent, percent_dense=cfg.percent_dense,
-            max_screen_size=cfg.max_screen_size,
-            use_screen_limit=iteration > cfg.opacity_reset_interval, noise=noise,
-        )
-        if dropped > 0:
-            scene, stats, moments = grow_capacity(scene, stats, cfg.capacity_headroom,
-                                                  moments=moments, round_to=self._splats)
-        self.state = self._shard_state(dataclasses.replace(
-            st, scene=scene, mu=moments[0], nu=moments[1], stats=stats))
+        with annotate("train/densify"):
+            st = self.full_state()
+            scene, stats, dropped, moments = densify_and_prune(
+                st.scene, st.stats, generator, moments=(st.mu, st.nu),
+                max_grad=cfg.densify_grad_threshold, min_opacity=cfg.min_opacity,
+                extent=self.cameras_extent, percent_dense=cfg.percent_dense,
+                max_screen_size=cfg.max_screen_size,
+                use_screen_limit=iteration > cfg.opacity_reset_interval, noise=noise,
+            )
+            if dropped > 0:
+                scene, stats, moments = grow_capacity(scene, stats, cfg.capacity_headroom,
+                                                      moments=moments, round_to=self._splats)
+            self.state = self._shard_state(dataclasses.replace(
+                st, scene=scene, mu=moments[0], nu=moments[1], stats=stats))
 
     def maybe_reset_opacity(self, iteration: int) -> None:
         """Opacity reset on the schedule; only the opacity group's moments
         are zeroed."""
         if iteration % self.cfg.opacity_reset_interval == 0 and iteration > 0:
-            st = self.state
-            mu, nu = dict(st.mu), dict(st.nu)
-            mu["opacity_logit"] = torch.zeros_like(mu["opacity_logit"])
-            nu["opacity_logit"] = torch.zeros_like(nu["opacity_logit"])
-            self.state = dataclasses.replace(st, scene=reset_opacity(st.scene), mu=mu, nu=nu)
+            with annotate("train/reset"):
+                st = self.state
+                mu, nu = dict(st.mu), dict(st.nu)
+                mu["opacity_logit"] = torch.zeros_like(mu["opacity_logit"])
+                nu["opacity_logit"] = torch.zeros_like(nu["opacity_logit"])
+                self.state = dataclasses.replace(st, scene=reset_opacity(st.scene),
+                                                 mu=mu, nu=nu)
 
     def maybe_increase_sh(self, iteration: int) -> None:
         if iteration % self.cfg.sh_increase_interval == 0 and iteration > 0:
-            self.state = dataclasses.replace(self.state,
-                                             scene=self.state.scene.oneup_sh_degree())
+            with annotate("train/sh"):
+                self.state = dataclasses.replace(self.state,
+                                                 scene=self.state.scene.oneup_sh_degree())
 
     def fit(
         self,

@@ -1,10 +1,27 @@
-"""Trace annotations, device traces and a host-side stage timer. Port of
+"""Spans, counters, device traces and a host-side stage timer. Port of
 `gsattack/utils/profiling.py` over `torch.profiler`.
 
-`annotate` / `annotate_fn` name a span in a trace, `trace_to` records one
-(the host and, where a card is present, its kernels) into a Chrome trace,
-and `StageTimer` sums host wall time by stage for a command's summary,
-waiting for the card where it is given a tensor to wait on.
+`annotate` / `annotate_fn` name a span of the program: while a profiler
+records, a `record_function`, so that the span lies in the same trace as
+the kernels, on their clock; while none records, a shared no-op after one
+flag check that does not enter the dispatcher (a disabled
+`record_function` still calls a registered op on entry and exit). Spans
+are named `layer/stage`: `render/project`, `render/bin`, `render/blend`,
+`blend/backward`, `blend/gather_sum`, `train/*`, `pgd/*`, `detector/*`,
+`dagger/*`.
+
+`count` adds to a named host integer; `counters()` copies them. A counter
+never reads a device tensor, so counting adds no launch and no
+synchronise. The counts made while a profiler records are also kept on
+their own (`counters(traced=True)`), so that a trace's reader can put them
+over the trace's steps. The counters: `blend_fwd_launches`,
+`blend_bwd_launches`, `gather_sum_launches` and `gather_launches` (one per
+kernel launch), and `pairs_binned` (the sorted pairs of each `bin_views`).
+
+`trace_to` records the host and, where a card is present, its kernels into
+a Chrome trace, and `StageTimer` sums host wall time by stage for a
+command's summary, waiting for the card where it is given a tensor to wait
+on.
 """
 
 from __future__ import annotations
@@ -21,9 +38,17 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 TRACE_FILE = "trace.json"
 
+_recording = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+_COUNTS: dict = {}
+_TRACED: dict = {}
+
 
 def annotate(name: str):
-    """A named span in a `torch.profiler` trace (a context manager)."""
+    """A named span (a context manager): a `record_function` while a
+    profiler records, else a shared no-op."""
+    if not _recording():
+        return _OFF
     return record_function(name)
 
 
@@ -33,12 +58,25 @@ def annotate_fn(name: str):
     def deco(fn):
         @functools.wraps(fn)
         def wrapped(*a, **k):
-            with record_function(name):
+            with annotate(name):
                 return fn(*a, **k)
 
         return wrapped
 
     return deco
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add the host integer `n` to the counter `name`."""
+    _COUNTS[name] = _COUNTS.get(name, 0) + n
+    if _recording():
+        _TRACED[name] = _TRACED.get(name, 0) + n
+
+
+def counters(traced: bool = False) -> dict:
+    """A copy of the counters: every count since import, or with `traced`
+    only those made while a profiler recorded."""
+    return dict(_TRACED if traced else _COUNTS)
 
 
 @contextlib.contextmanager

@@ -13,6 +13,7 @@ import torch
 from gsattack.ops.pallas_gather import gather_rows as j_gather_rows
 from gsattack_torch.ops import gather
 from gsattack_torch.scripts import micro_gather
+from gsattack_torch.utils.profiling import counters
 
 torch.set_num_threads(2)
 
@@ -53,10 +54,10 @@ def test_gather_rows_plain_edge_cases(s, m, w, repeat):
 
 
 def test_gather_rows_cpu_takes_plain_route():
-    before = gather.GATHER_LAUNCHES
+    before = counters().get("gather_launches", 0)
     src, idx = _inputs(30, 40, 8, seed=2)
     gather.gather_rows(torch.from_numpy(src), torch.from_numpy(idx))
-    assert gather.GATHER_LAUNCHES == before
+    assert counters().get("gather_launches", 0) == before
 
 
 @pytest.mark.parametrize("src,idx,match", [
